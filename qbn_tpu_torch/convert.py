@@ -1,0 +1,33 @@
+"""Weights carried across from qbn_tpu.
+
+qbn_tpu keeps a model's state as flax variable collections: nested dicts
+('params', 'batch_stats', 'quant', 'qconst', ...) with array leaves. The
+port keeps the same nesting and key names with torch tensor leaves, so a
+module finds its constants under the same path as its flax counterpart.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def from_jax_state(tree):
+    """Nested dict of numpy arrays (the port's checkpoint reader, or
+    flax.serialization.msgpack_restore, or np.asarray of JAX variables)
+    -> the same nesting with CPU torch tensors of the same dtype and
+    shape. Scalars become 0-d tensors."""
+    if isinstance(tree, dict):
+        return {k: from_jax_state(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def to_device(state, device):
+    """Move every tensor leaf of a state tree to `device`.
+
+    All quantisation constants travel with the codes: a 0-d CPU tensor
+    mixed with a CUDA tensor would make PyTorch divide by multiplying with
+    the reciprocal, which is not bitwise the division qbn_tpu computes."""
+    if isinstance(state, dict):
+        return {k: to_device(v, device) for k, v in state.items()}
+    return state.to(device)

@@ -1,0 +1,79 @@
+"""Streaming classification metrics over explicit state (port of the
+classification half of qbn_tpu/training/metrics.py).
+
+Error, NLL (-sum one_hot*log(p+1e-8) / N), Brier (sum (p-one_hot)^2 / N),
+predictive entropy (-sum p*log(p+1e-8) / N), and the 10-bin l1 expected
+calibration error binned on max-probability confidence (torchmetrics
+CalibrationError(n_bins=10, norm='l1') semantics). Each is a (sum, count)
+accumulator updated per batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+ECE_BINS = 10
+
+
+def cls_metrics_init(n_bins: int = ECE_BINS, device="cpu"):
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return {
+        "errors": z(),
+        "nll_sum": z(),
+        "brier_sum": z(),
+        "entropy_sum": z(),
+        "count": z(),
+        "ece_conf": z(n_bins),
+        "ece_acc": z(n_bins),
+        "ece_count": z(n_bins),
+    }
+
+
+def cls_metrics_update(state, probs, target):
+    """Accumulate one batch of (B, C) probabilities and (B,) labels."""
+    probs = probs.to(torch.float32)
+    target = target.to(probs.device)
+    n_bins = state["ece_count"].shape[0]
+    preds = torch.argmax(probs, dim=1)
+    correct = (preds == target).to(torch.float32)
+    one_hot = torch.zeros_like(probs)
+    one_hot[torch.arange(probs.shape[0], device=probs.device), target] = 1.0
+    logp = torch.log(probs + 1e-8)
+    conf = torch.max(probs, dim=1).values
+    # bucketize(conf, linspace(0, 1, n+1), right=True) - 1, clamped: a
+    # confidence exactly on a float32 boundary lands in the UPPER bin and
+    # conf == 1.0 in the top bin
+    boundaries = torch.linspace(0.0, 1.0, n_bins + 1, dtype=torch.float32,
+                                device=probs.device)
+    bin_idx = torch.clamp(
+        (conf[:, None] >= boundaries[None, 1:]).sum(dim=1), 0, n_bins - 1)
+    return {
+        "errors": state["errors"] + torch.sum(1.0 - correct),
+        "nll_sum": state["nll_sum"] + torch.sum(-one_hot * logp),
+        "brier_sum": state["brier_sum"] + torch.sum((probs - one_hot) ** 2),
+        "entropy_sum": state["entropy_sum"] + torch.sum(-probs * logp),
+        "count": state["count"] + float(target.shape[0]),
+        "ece_conf": state["ece_conf"].index_add(0, bin_idx, conf),
+        "ece_acc": state["ece_acc"].index_add(0, bin_idx, correct),
+        "ece_count": state["ece_count"].index_add(
+            0, bin_idx, torch.ones_like(conf)),
+    }
+
+
+def cls_metrics_compute(state):
+    count = torch.clamp(state["count"], min=1.0)
+    bin_n = state["ece_count"]
+    safe_n = torch.clamp(bin_n, min=1.0)
+    acc = state["ece_acc"] / safe_n
+    conf = state["ece_conf"] / safe_n
+    ece = torch.sum(torch.where(bin_n > 0, torch.abs(acc - conf) * bin_n,
+                                torch.zeros_like(bin_n)))
+    ece = ece / torch.clamp(torch.sum(bin_n), min=1.0)
+    return {
+        "error": state["errors"] / count,
+        "nll": state["nll_sum"] / count,
+        "brier": state["brier_sum"] / count,
+        "entropy": state["entropy_sum"] / count,
+        "ece": ece,
+    }
