@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the root of a checkout: it builds the port's CUDA kernel with nvcc
-and drives the port's main path, INT8 Monte-Carlo evaluation of the trained
-Bayes-by-backprop ResNet-18 (examples/campaign/bbb-cifar-a_7_w_8-seed1) at
-full width, on CIFAR-shaped inputs made from --seed with numpy. Phases, in
-order, each printing its seconds:
+Run from the root of a checkout: it builds the port's CUDA kernels with nvcc
+and drives the port's two paths at full width: INT8 Monte-Carlo evaluation
+of the trained Bayes-by-backprop ResNet-18
+(examples/campaign/bbb-cifar-a_7_w_8-seed1) on CIFAR-shaped inputs, and
+float Bayes-by-backprop training of the MNIST LeNet on MNIST-shaped
+inputs, both made from --seed with numpy. Phases, in order, each printing
+its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
-  2. build    nvcc of csrc/sample_weights.cu, with its register/spill report
+  2. build    nvcc of csrc/sample_weights.cu and csrc/bbb_dense.cu, one
+              process each, started together, with their register/spill
+              reports
   3. kernel   the posterior-draw kernel against its plain PyTorch version:
               bitwise with explicit noise at all 21 flagship layers (S=100)
               and on a pack holding a layer over 1024 rows of 512; with its
@@ -26,7 +30,19 @@ order, each printing its seconds:
               path on a small input
   6. profile  one batch under torch.profiler: device time by kernel and
               the device's idle share
-  7. times    the draw kernel against the plain version and its bound
+  7. bbb_dense the local-reparametrisation dense kernel against its plain
+              version and a float64 product at LeNet's fc_0 and fc_1 and at
+              a ragged shape, its hand-written backward against autograd,
+              and the moments and lag-1 correlations of 10^7 of its own
+              (seed-mode) normals
+  8. train    `flows.fit` of the BBB LeNet with tpu_fused=True: B=256,
+              2 epochs x 10 steps, the dense kernel's launch count (2 per
+              step), the kernel path against the plain path for 3 steps
+              with the same params and noise, the card against the CPU at
+              B=8, and ms per steady step
+  9. train_profile one training step under torch.profiler
+ 10. times    each kernel against its plain version and its bound (the
+              dense kernel also against two cuBLAS products + epilogue)
 
 Any failed check raises and the run exits non-zero. The last lines are a
 `{"kernels": [...]}` JSON object and `{"ok": true, "device": {...}}`.
@@ -53,18 +69,34 @@ from qbn_tpu_torch.convert import to_device
 from qbn_tpu_torch.evaluation.mc import (
     draw_sampled_weights, evaluate, mc_predict, plan_layers, presample_plan,
     sampled_tree)
+from qbn_tpu_torch.flows import fit
 from qbn_tpu_torch.models.architectures import CUTS
-from qbn_tpu_torch.models.factory import load_trained
+from qbn_tpu_torch.models.factory import build_model, load_trained
 from qbn_tpu_torch.ops import _build
+from qbn_tpu_torch.ops import bbb_dense as bd
 from qbn_tpu_torch.ops import sample_weights as sw
-from qbn_tpu_torch.ops.integer import _CENTERED_K, conv_sum, no_tf32
-from qbn_tpu_torch.training.metrics import cls_metrics_compute
+from qbn_tpu_torch.ops.integer import _CENTERED_K, conv_sum
+from qbn_tpu_torch.ops.stochastic import (
+    QueueNoise, local_reparam_dense_auto, softplus)
+from qbn_tpu_torch.presets import preset
+from qbn_tpu_torch.training.metrics import (
+    cls_metrics_compute, cls_metrics_init)
+from qbn_tpu_torch.training.optim import build_optimizer
+from qbn_tpu_torch.training.trainer import Trainer
+from qbn_tpu_torch.utils import full_float32, init_variables
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXP = os.path.join(ROOT, "examples", "campaign", "bbb-cifar-a_7_w_8-seed1")
 BATCHES, BATCH, SAMPLES = 3, 256, 100     # the main path, as bench.py runs it
 KERNEL_SOURCE = "qbn_tpu_torch/csrc/sample_weights.cu"
 KERNEL_REPLACES = "qbn_tpu/ops/pallas/sample_weights.py:356"
+DENSE_SOURCE = "qbn_tpu_torch/csrc/bbb_dense.cu"
+DENSE_REPLACES = "qbn_tpu/ops/pallas/bbb_dense.py:73"
+# the training path: the mnist BBB preset at its batch, 2 epochs x 10 steps
+TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 256, 2, 10
+# (B, K, N) of LeNet's fc_0 and fc_1 at that batch, and a ragged shape
+DENSE_SHAPES = [("fc_0", 256, 2450, 500), ("fc_1", 256, 500, 10),
+                ("ragged", 250, 333, 77)]
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
 # (non-tensor-core) operations/s, at the full 700 W power limit.
@@ -105,19 +137,39 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
+# GPU cycles the card spins before a timed run (about 50 ms at H100
+# clocks), so that the host has queued every timed call before the first
+# one starts
+SPIN_CYCLES = 100_000_000
+
+
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds per call on the card (CUDA events, after warm-up)."""
+    """Mean milliseconds per call on the card (CUDA events, after
+    warm-up). The card spins first (torch.cuda._sleep), so that a host
+    slower than the calls leaves no gaps between them and the result is
+    device time. Where the host falls behind anyway (queueing all calls
+    took longer than the spin and all but one of the calls), the result
+    includes its gaps: it is the call's wall time, and says so."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    spin_start = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    spin_start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    if host_ms >= spin_start.elapsed_time(start) + (iters - 1) * ms:
+        print(f"  ({fn.__name__}: host-bound, {host_ms / iters:.3f} ms of "
+              "host time per call; the time includes host gaps)")
+    return ms
 
 
 def plain_draw(layers, noise):
@@ -312,7 +364,7 @@ def phase_conv(batch, samples, seed, dev):
                       device=dev).float()
     w = torch.randint(-128, 128, (samples, 192, 10), generator=g,
                       device=dev).float()
-    with no_tf32():
+    with full_float32():
         got = torch.bmm(x, w)
     err = float((got.double() - torch.bmm(x.double(), w.double())).abs()
                 .max())
@@ -427,25 +479,7 @@ def phase_profile(model, state, seed, dev):
                              ProfilerActivity.CUDA]) as prof:
         _state, _probs, secs = evaluate(model, state, batch, SAMPLES, gen,
                                         dev)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]       # kernels, not ops
-    busy_us = sum(e.self_device_time_total for e in rows)
-    wall_us = 1e6 * secs[0]
-    if busy_us == 0:
-        print("profiled batch: the profiler saw no device time (not "
-              "measured)")
-        return
-    # one stream: busy time above the wall clock means the profiler's
-    # kernel times cannot be trusted for an idle share
-    idle = (f"{1 - busy_us / wall_us:.3f}" if busy_us <= wall_us else
-            "not measured (profiled device time exceeds the wall clock)")
-    print(f"profiled batch: wall {wall_us / 1e3:.1f} ms (profiler on), "
-          f"device busy {busy_us / 1e3:.1f} ms, idle share {idle}")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{100 * e.self_device_time_total / busy_us:5.1f}% "
-              f"x{e.count:<5d} {e.key[:100]}")
+    report_profile(prof, 1e6 * secs[0], "profiled batch")
 
 
 def phase_times(state, plan, samples, seed):
@@ -483,6 +517,378 @@ def phase_times(state, plan, samples, seed):
     return ms, plain_ms, bound_ms, bound_by
 
 
+def dense_bound(x, w, sp, eps):
+    """Per-element bound on |float32 result - exact| of the fused dense: the
+    classical bound gamma_K * sum_k |a_k b_k| (gamma_K = K u / (1 - K u),
+    u = 2^-24) on each float32 dot product of K terms, in whatever order
+    it is summed, carried through sqrt(1e-8 + var) (d sqrt(v) = dv / 2
+    sqrt(v)), plus 4 ulps of the result. Returns (float64 reference,
+    bound), both (B, N)."""
+    x64, w64, s64, e64 = (t.double() for t in (x, w, sp, eps))
+    k = x.shape[1]
+    u = 2.0 ** -24
+    gamma = k * u / (1 - k * u)
+    var = (x64 * x64) @ (s64 * s64)
+    std = torch.sqrt(1e-8 + var)
+    ref = x64 @ w64 + std * e64
+    bound = (gamma * (x64.abs() @ w64.abs()) + gamma * var / (2 * std)
+             * e64.abs() + 4 * u * ref.abs())
+    return ref, bound
+
+
+def _dense_inputs(b, k, n, g, dev):
+    """LeNet-like operands: activations of either sign, the BBB init's
+    U(-0.01, 0.01) means, softplus(-3 +- 0.5) stds, standard normals."""
+    x = torch.randn((b, k), generator=g, device=dev)
+    w = (torch.rand((k, n), generator=g, device=dev) * 2 - 1) * 0.01
+    sp = softplus(-3 + (torch.rand((k, n), generator=g, device=dev) - 0.5))
+    eps = torch.randn((b, n), generator=g, device=dev)
+    return x, w, sp, eps
+
+
+def phase_bbb_dense(seed, dev):
+    """The dense kernel against its plain version and float64; its own
+    normals. Returns the largest |kernel - plain| seen."""
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    max_err = 0.0
+    for name, b, k, n in DENSE_SHAPES:
+        x, w, sp, eps = _dense_inputs(b, k, n, g, dev)
+        with full_float32():
+            got = bd.bbb_dense(x, w, sp, eps)
+            plain = bd.bbb_dense_plain(x, w, sp, eps)
+        torch.cuda.synchronize()
+        ref, bound = dense_bound(x, w, sp, eps)
+        err = float((got - plain).abs().max())
+        max_err = max(max_err, err)
+        rk = float(((got.double() - ref).abs() / bound).max())
+        rp = float(((plain.double() - ref).abs() / bound).max())
+        print(f"bbb_dense {name} B={b} K={k} N={n} splits,k_chunk="
+              f"{bd.split_k(b, k, n, bd_sms(dev))}: max|kernel - plain| "
+              f"{err:.3g}, |kernel - f64| / bound {rk:.4f}, |plain - f64| "
+              f"/ bound {rp:.4f}, max|out| {float(ref.abs().max()):.3g}")
+        check(got.shape == (b, n) and bool(torch.isfinite(got).all()),
+              f"bbb_dense {name}: shape or non-finite")
+        check(rk <= 1.0 and rp <= 1.0, f"bbb_dense {name}: off float64 "
+              "beyond the float32 dot-product bound")
+        check(bool(((got - plain).abs().double() <= 2 * bound).all()),
+              f"bbb_dense {name}: kernel and plain differ beyond the "
+              "sum of their bounds")
+        # the hand-written backward against autograd of the plain form,
+        # same upstream gradient: the same cuBLAS products, 1e-6 of the
+        # largest entry
+        up = torch.randn((b, n), generator=g, device=dev)
+        grads = []
+        for fused in (True, False):
+            leaves = [t.clone().requires_grad_() for t in (x, w, sp)]
+            with full_float32():
+                out = local_reparam_dense_auto(*leaves, QueueNoise([eps]),
+                                               fused=fused)
+                grads.append(torch.autograd.grad(out, leaves, up))
+        gerr = max(float((a - c).abs().max() / c.abs().max())
+                   for a, c in zip(*grads))
+        print(f"  backward (dx, dw, dsp) vs autograd of the plain form: "
+              f"max diff / max entry {gerr:.3g}")
+        check(gerr <= 1e-6, f"bbb_dense {name}: backward differs")
+
+    # seed mode: with x = 1, w = 0 and sp = 1/sqrt(K) = 1/8 (exact in
+    # float32) the variance is exactly 1 and out = eps, the kernel's own
+    # normals; 4096 x 2560 = 10.5 M of them
+    b, k, n = 4096, 64, 2560
+    x = torch.ones((b, k), device=dev)
+    w = torch.zeros((k, n), device=dev)
+    sp = torch.full((k, n), 1 / math.sqrt(k), device=dev)
+    gen = torch.Generator().manual_seed(seed + 12)
+    z = bd.bbb_dense(x, w, sp, generator=gen).double()
+    z2 = bd.bbb_dense(x, w, sp, generator=gen).double()
+    m = z.numel()
+    mean, std = float(z.mean()), float(z.std())
+    print(f"seed-mode normals over {m} draws: mean {mean:.6f} (0 +- "
+          f"{5 / math.sqrt(m):.6f}), std {std:.6f} (1 +- "
+          f"{5 / math.sqrt(2 * m):.6f})")
+    check(abs(mean) <= 5 / math.sqrt(m), "seed-mode mean")
+    check(abs(std - 1) <= 5 / math.sqrt(2 * m), "seed-mode std")
+    for what, a, c in (("along N", z[:, :-1], z[:, 1:]),
+                       ("along B", z[:-1], z[1:]),
+                       ("between two launches", z, z2)):
+        a = a.reshape(-1) - a.mean()
+        c = c.reshape(-1) - c.mean()
+        r = float((a * c).mean() / (a.std() * c.std()))
+        print(f"seed-mode lag-1 correlation {what} {r:.6f}")
+        check(abs(r) <= 5 / math.sqrt(a.numel()), f"correlation {what}")
+    return max_err
+
+
+def bd_sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _train_noise(b, g, dev):
+    """One training step's normals, in the order LeNet draws them."""
+    shapes = [(b, 28, 28, 20), (b, 14, 14, 50), (b, 500), (b, 10)]
+    return [torch.randn(s, generator=g, device=dev) for s in shapes]
+
+
+def _trainer(cfg, n_batches, batch, noise, dev):
+    """A fresh trainer whose noise source hands out `noise` (a list of
+    steps, each LeNet's four draws)."""
+    tx, _ = build_optimizer(cfg, n_batches)
+    return Trainer(build_model(cfg), cfg, tx, "float", n_batches,
+                   n_batches * batch,
+                   QueueNoise([e for step in noise for e in step]), dev)
+
+
+def _run_steps(cfg, variables, batches, noise, dev, n_batches):
+    """Steps of a fresh trainer from `variables` with queued noise;
+    returns (losses, final state)."""
+    trainer = _trainer(cfg, n_batches, len(batches[0][1]), noise, dev)
+    state = trainer.init_state(variables)
+    metric = cls_metrics_init(device=dev)
+    losses = []
+    for x, y in batches:
+        state, metric, logs = trainer.train_step(
+            state, metric, x.to(dev), y.to(dev), trainer.noise)
+        losses.append((float(logs["obj"]), float(logs["main_obj"])))
+    return losses, state
+
+
+def _param_diffs(a, b):
+    """{'layer/leaf': |a - b| flattened on the CPU} of every parameter."""
+    return {f"{m}/{k}": (a.params[m][k].detach().cpu()
+                         - b.params[m][k].detach().cpu()).abs().reshape(-1)
+            for m in a.params for k in a.params[m]}
+
+
+def _check_params(diffs, what, steps, lr):
+    """Params of two runs whose gradients differ by rounding. Adam's first
+    update is lr * g / (|g| + eps): where a gradient is at the level of
+    rounding noise (a handful of the 2.5 M at B=256), its sign, and so an
+    update of about lr, can differ, and the next steps spread that into
+    differences of 1e-6 to 1e-5 elsewhere. So: every entry within
+    3 * steps * lr, and at most 0.01% of them beyond lr / 10."""
+    d = torch.cat(list(diffs.values()))
+    n_tenth = int((d > 0.1 * lr).sum())
+    print(f"{what}: params max abs diff {float(d.max()):.3g}, {n_tenth} of "
+          f"{d.numel()} beyond lr/10, {int((d > 1e-6).sum())} beyond 1e-6;"
+          " by leaf (max/beyond lr/10) " + ", ".join(
+              f"{k} {float(v.max()):.2g}/{int((v > 0.1 * lr).sum())}"
+              for k, v in diffs.items()))
+    check(float(d.max()) <= 3 * steps * lr and n_tenth <= 1e-4 * d.numel(),
+          f"{what}: params differ")
+
+
+def phase_train(seed, dev):
+    """flows.fit of the BBB LeNet through the dense kernel, then the kernel
+    path against the plain path and the card against the CPU. Returns
+    the dense kernel's launches during fit."""
+    cfg = preset("bbb", "mnist", tpu_fused=True, epochs=TRAIN_EPOCHS,
+                 seed=seed)
+    rng = np.random.default_rng(seed)
+    batches = [(torch.as_tensor(rng.random((TRAIN_BATCH, 28, 28, 1),
+                                           dtype=np.float32), device=dev),
+                torch.as_tensor(rng.integers(0, 10, TRAIN_BATCH),
+                                device=dev))
+               for _ in range(TRAIN_STEPS)]
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    bd.launches = 0
+    t0 = time.perf_counter()
+    model, trainer, state = fit(cfg, batches, device=dev)
+    launches = bd.launches
+    print(f"fit: {steps} steps of B={TRAIN_BATCH} in "
+          f"{time.perf_counter() - t0:.2f} s (first step included), "
+          f"dense kernel launches {launches}")
+    check(launches == 2 * steps, f"dense kernel launches {launches} for "
+          f"{steps} steps")
+    for row in trainer.history:
+        tm = row["train"]
+        print(f"epoch {row['epoch']}: " + json.dumps(tm))
+        check(all(math.isfinite(v) for v in tm.values()),
+              f"non-finite training metrics {tm}")
+
+    # ms per steady step: CUDA events over 10 more steps
+    metric = cls_metrics_init(device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, y in batches:
+        state, metric, logs = trainer.train_step(state, metric, x, y,
+                                                 trainer.noise)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / len(batches)
+    print(f"train step: {step_ms:.3f} ms per steady step (CUDA events over "
+          f"{len(batches)} steps), {1e3 * TRAIN_BATCH / step_ms:.0f} "
+          f"examples/s, loss {float(logs['obj']):.4f}")
+    check(math.isfinite(float(logs["obj"])), "non-finite loss")
+
+    # kernel path against plain path: same init, batches and noise, with
+    # cuDNN held to deterministic algorithms (its default weight-gradient
+    # convs add with atomics, so two runs of the same path differ); the
+    # plain path run twice shows what is left of run-to-run differences
+    variables = init_variables(model, torch.Generator().manual_seed(seed),
+                               cfg.input_size, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    noise = [_train_noise(TRAIN_BATCH, g, dev) for _ in range(3)]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_run_steps(cfg.replace(tpu_fused=fused), variables,
+                           batches[:3], noise, dev, TRAIN_STEPS)
+                for fused in (True, False, False)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (lk, sk), (lp, sp_), (_lp2, sp2) = runs
+    _check_params(_param_diffs(sp_, sp2), "plain path vs plain path", 3,
+                  cfg.learning_rate)
+    dloss = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(lk, lp))
+    dobj = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(lk, lp))
+    print(f"kernel path vs plain path, 3 steps: losses {lk} vs {lp}, NLL "
+          f"max rel diff {dloss:.3g}, loss max rel diff {dobj:.3g}")
+    check(dloss <= 1e-5 and dobj <= 1e-5, "kernel and plain losses differ")
+    _check_params(_param_diffs(sk, sp_), "kernel path vs plain path", 3,
+                  cfg.learning_rate)
+
+    # the card against the CPU (held against qbn_tpu by the CPU tests): one
+    # step and an eval forward at B=8
+    cpu = torch.device("cpu")
+    small = [(batches[0][0][:8], batches[0][1][:8])]
+    n8 = [_train_noise(8, g, dev)]
+    lg, sg = _run_steps(cfg, variables, small, n8, dev, TRAIN_STEPS)
+    lc, sc = _run_steps(cfg, to_device(variables, cpu),
+                        [(x.cpu(), y.cpu()) for x, y in small],
+                        [[e.cpu() for e in n8[0]]], cpu, TRAIN_STEPS)
+    wn = [torch.randn(s, generator=g, device=dev) for s in
+          ((5, 5, 1, 20), (5, 5, 20, 50), (2450, 500), (500, 10))]
+    with torch.no_grad(), full_float32():
+        pg = model(small[0][0], {"params": sg.params}, noise=QueueNoise(wn))
+        pc = model(small[0][0].cpu(), {"params": sc.params},
+                   noise=QueueNoise([e.cpu() for e in wn]))
+    dl = abs(lg[0][0] - lc[0][0]) / abs(lc[0][0])
+    dprob = float((pg.cpu() - pc).abs().max())
+    print(f"card vs CPU at B=8: loss rel diff {dl:.3g}, eval probabilities "
+          f"max abs diff {dprob:.3g}")
+    check(dl <= 1e-5 and dprob <= 1e-5, "card and CPU training differ")
+    _check_params(_param_diffs(sg, sc), "card vs CPU", 1, cfg.learning_rate)
+    return launches
+
+
+def phase_train_profile(seed, dev):
+    """One training step of the LeNet under torch.profiler: device time by
+    kernel and the idle share of the step's wall time."""
+    cfg = preset("bbb", "mnist", tpu_fused=True, seed=seed)
+    model = build_model(cfg)
+    variables = init_variables(model, torch.Generator().manual_seed(seed),
+                               cfg.input_size, dev)
+    rng = np.random.default_rng(seed + 2)
+    batch = [(torch.as_tensor(rng.random((TRAIN_BATCH, 28, 28, 1),
+                                         dtype=np.float32), device=dev),
+              torch.as_tensor(rng.integers(0, 10, TRAIN_BATCH), device=dev))]
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    noise = [_train_noise(TRAIN_BATCH, g, dev) for _ in range(2)]
+    trainer = _trainer(cfg, TRAIN_STEPS, TRAIN_BATCH, noise, dev)
+    state = trainer.init_state(variables)
+    metric = cls_metrics_init(device=dev)
+    (x, y), = batch
+    state, metric, _ = trainer.train_step(state, metric, x, y,
+                                          trainer.noise)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, metric, x, y, trainer.noise)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    report_profile(prof, wall_us, "profiled train step")
+
+
+def report_profile(prof, wall_us, what):
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]       # kernels, not ops
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us == 0:
+        print(f"{what}: the profiler saw no device time (not measured)")
+        return
+    # one stream: busy time above the wall clock means the profiler's
+    # kernel times cannot be trusted for an idle share
+    idle = (f"{1 - busy_us / wall_us:.3f}" if busy_us <= wall_us else
+            "not measured (profiled device time exceeds the wall clock)")
+    print(f"{what}: wall {wall_us / 1e3:.2f} ms (profiler on), device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {idle}")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{100 * e.self_device_time_total / busy_us:5.1f}% "
+              f"x{e.count:<5d} {e.key[:100]}")
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
+    host_us = sum(e.self_cpu_time_total for e in ops)
+    print(f"  host: {sum(e.count for e in ops)} aten calls, "
+          f"{host_us / 1e3:.2f} ms of self CPU time; most:")
+    ops.sort(key=lambda e: -e.self_cpu_time_total)
+    for e in ops[:6]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:60]}")
+
+
+def phase_dense_times(seed):
+    """The dense kernel at fc_0 against its plain version and against two
+    cuBLAS products + a fused epilogue (the library yardstick), in turns;
+    and its bound. Returns (ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    _name, b, k, n = DENSE_SHAPES[0]
+    x, w, sp, eps = _dense_inputs(b, k, n, g, dev)
+    x2, s2 = x * x, sp * sp
+
+    def kernel():
+        bd.bbb_dense(x, w, sp, eps)
+
+    def plain():
+        bd.bbb_dense_plain(x, w, sp, eps)
+
+    def library():            # squares given; 2 GEMMs + the epilogue
+        torch.addcmul(torch.mm(x, w), torch.sqrt(torch.mm(x2, s2) + 1e-8),
+                      eps)
+
+    ops = 4 * b * k * n + b * k + k * n + 3 * b * n
+    nbytes = 4 * (b * k + 2 * k * n + 2 * b * n)
+    ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    with full_float32():
+        t = [cuda_ms(f, iters=50) for f in (plain, kernel, library, library,
+                                            kernel, plain)]
+    plain_ms, ms, lib_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, \
+        (t[2] + t[3]) / 2
+    print(f"bbb_dense fc_0 B={b} K={k} N={n}: kernel {t[1]:.4f}/{t[4]:.4f} "
+          f"ms, plain {t[0]:.4f}/{t[5]:.4f} ms, two cuBLAS float32 products "
+          f"+ epilogue (TF32 off) {t[2]:.4f}/{t[3]:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({ops} operations "
+          f"{ops_ms:.4f} ms, {nbytes} bytes {bytes_ms:.4f} ms)")
+
+    # seed mode (qbn_tpu's _kernel_prng): the normals drawn in the kernel
+    # against torch.randn + the plain version; eps is no longer read
+    gen = torch.Generator().manual_seed(seed + 32)
+
+    def kernel_seed():
+        bd.bbb_dense(x, w, sp, generator=gen)
+
+    def plain_seed():
+        bd.bbb_dense_plain(x, w, sp, torch.randn((b, n), generator=g,
+                                                 device=dev))
+
+    with full_float32():
+        ts = [cuda_ms(f, iters=50) for f in (plain_seed, kernel_seed,
+                                              kernel_seed, plain_seed)]
+    seed_bytes_ms = 1e3 * (nbytes - 4 * b * n) / HBM_BYTES_PER_S
+    print(f"bbb_dense fc_0 seed mode: kernel {ts[1]:.4f}/{ts[2]:.4f} ms, "
+          f"randn + plain {ts[0]:.4f}/{ts[3]:.4f} ms, bound "
+          f"{max(ops_ms, seed_bytes_ms):.4f} ms by operations (the Philox "
+          "and Box-Muller work not counted)")
+    return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -504,10 +910,12 @@ def main(argv=None) -> int:
               f"count {torch.cuda.device_count()}")
     with Phase("build"):
         t0 = time.perf_counter()
-        lib = _build.build("sample_weights", force=True)
-        print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> {os.path.relpath(lib, ROOT)}"
-              f" in {time.perf_counter() - t0:.2f} s")
-        print(_build.BUILD_LOGS["sample_weights"].strip())
+        libs = _build.build_all(["sample_weights", "bbb_dense"], force=True)
+        for name, lib in libs.items():
+            print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
+                  f"{os.path.relpath(lib, ROOT)}")
+            print(_build.BUILD_LOGS[name].strip())
+        print(f"both built in {time.perf_counter() - t0:.2f} s")
     with Phase("load"):
         cfg, model, state = load_trained(EXP, device="cuda")
         plan = presample_plan(state)
@@ -522,16 +930,27 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(model, state, args.seed, dev)
+    with Phase("bbb_dense"):
+        dense_err = phase_bbb_dense(args.seed, dev)
+    with Phase("train"):
+        dense_launches = phase_train(args.seed, dev)
+    with Phase("train_profile"):
+        phase_train_profile(args.seed, dev)
     with Phase("times"):
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
+        d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
         "name": "sample_weights", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}))
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "name": "bbb_dense", "route": "cuda", "source": DENSE_SOURCE,
+        "replaces": DENSE_REPLACES, "launches": dense_launches,
+        "max_abs_err": dense_err, "ms": d_ms, "plain_ms": d_plain,
+        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

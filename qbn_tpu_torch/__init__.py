@@ -3,13 +3,16 @@
 A package of its own beside `qbn_tpu` (the JAX reference, which stays as
 it is). It follows qbn_tpu's module layout and names so that each piece
 has an obvious counterpart, and it imports torch, numpy and the standard
-library only: never jax, flax, msgpack or qbn_tpu.
+library only: never jax, flax, optax, msgpack or qbn_tpu.
 
-What is ported so far is the INT8 Monte-Carlo evaluation of a converted
-Bayes-by-backprop ResNet-18 from a trained checkpoint
-(`evaluation.mc.evaluate`). Its one hand-written kernel is the bulk
-posterior weight draw, `csrc/sample_weights.cu`, built with nvcc at first
-use (`ops/_build.py`). Entry points run on the card (`device="cuda"`)
-unless the caller asks for the CPU, where every kernel's plain PyTorch
-version runs instead.
+What is ported so far:
+- INT8 Monte-Carlo evaluation of a converted Bayes-by-backprop ResNet-18
+  from a trained checkpoint (`evaluation.mc.evaluate`), through the bulk
+  posterior weight draw kernel, `csrc/sample_weights.cu`;
+- float Bayes-by-backprop training of the MNIST LeNet (`flows.fit`), whose
+  dense layers run the fused local-reparametrisation kernel,
+  `csrc/bbb_dense.cu`, with `tpu_fused=True`.
+The kernels are built with nvcc at first use (`ops/_build.py`). Entry
+points run on the card (`device="cuda"`) unless the caller asks for the
+CPU, where every kernel's plain PyTorch version runs instead.
 """

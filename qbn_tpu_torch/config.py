@@ -1,9 +1,12 @@
 """Experiment configuration (port of qbn_tpu/config.py and the QuantConfig
 of qbn_tpu/models/layers.py).
 
-Only the fields that INT evaluation of a trained checkpoint reads are
-kept; `Config.from_json` ignores the other keys of an experiment's
-config.json.
+Only the fields that the ported paths read are kept (INT evaluation of a
+trained checkpoint, float Bayes-by-backprop training); `Config.from_json`
+ignores the other keys of an experiment's config.json. `tpu_fused` keeps
+qbn_tpu's name so that a config.json carries across; in the port it routes
+the BBB local-reparametrisation dense layers through the hand-written CUDA
+kernel of `ops/bbb_dense.py`.
 """
 
 from __future__ import annotations
@@ -17,14 +20,34 @@ from qbn_tpu_torch.quant.bounds import INT_BOUNDS, UINT_BOUNDS
 
 @dataclasses.dataclass
 class Config:
+    # task / model selection
+    task: str = "classification"          # classification | regression
     model: str = "conv_resnet_bbb"        # <arch>[_<method>]
+    dataset: str = "cifar"                # mnist | cifar | regression_*
+    # optimisation
+    learning_rate: float = 1e-3
+    loss_scaling: str = "batch"           # 'whole' | 'batch'
+    loss_multiplier: float = 1.0
+    weight_decay: float = 0.0
+    epochs: int = 300
+    batch_size: int = 256
+    gamma: float = 0.01                   # KL weight
+    optimizer: str = "adam"               # adam | sgd
+    momentum: float = 0.9                 # for sgd
+    lr_schedule: str = "cosine"           # cosine | constant
+    # Bayesian knobs
+    sigma_prior: float = 0.05             # BBB prior std
+    samples: int = 20                     # MC samples at eval
+    # data
     input_size: Tuple[int, ...] = (32, 32, 3)   # NHWC
     output_size: int = 10
+    # quantisation
     q: bool = False                       # converted-int inference
     activation_precision: int = 7         # bits, 2..7 (uint)
     weight_precision: int = 8             # bits, 2..8 (int)
-    samples: int = 20                     # MC samples at eval
-    batch_size: int = 256
+    # bookkeeping
+    seed: int = 1
+    tpu_fused: bool = False               # BBB dense through the CUDA kernel
 
     @classmethod
     def from_json(cls, path: str) -> "Config":
@@ -35,12 +58,36 @@ class Config:
             kw["input_size"] = tuple(kw["input_size"])
         return cls(**kw)
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def method(self) -> str:
+        """Inference method encoded in the model name suffix."""
+        for m in ("bbb", "sgld", "mc"):
+            if self.model.endswith("_" + m) or m in self.model.split("_"):
+                return {"mc": "mcdropout"}.get(m, m)
+        return "pointwise"
+
+    @property
+    def arch(self) -> str:
+        """Architecture family: linear | conv_lenet | conv_resnet."""
+        name = self.model
+        for suffix in ("_bbb", "_sgld", "_mc"):
+            if name.endswith(suffix):
+                name = name[: -len(suffix)]
+        return name
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Static quantisation configuration (int mode: always enabled)."""
+    """Static quantisation configuration. `enabled` attaches the int
+    machinery (int mode); `tpu_fused` routes the BBB training dense through
+    the CUDA kernel."""
+    enabled: bool = False
     a_bits: int = 7
     w_bits: int = 8
+    tpu_fused: bool = False
 
     @property
     def a_bounds(self) -> Tuple[int, int]:

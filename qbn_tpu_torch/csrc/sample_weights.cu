@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kPerThread = 16;   // outputs per thread: one 16-byte store
@@ -53,33 +55,6 @@ enum QIdx { W_SCALE, W_ZP, STD_SCALE, STD_ZP, MUL_SCALE, MUL_ZP, ADD_SCALE,
 // layer's (S, n) block; src: first code of the layer in w/std; n: elements
 // per sample.
 enum MetaIdx { CHUNK_START, DST, SRC, N };
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  const uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  const uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
-    const uint32_t hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += kW0;
-    key.y += kW1;
-  }
-  return ctr;
-}
-
-// Two standard normals from two uint32 (Box-Muller): u1 in (0, 1] keeps
-// the log finite, u2 in [0, 1).
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
-                                           float* z0, float* z1) {
-  const float u1 = (float)((a >> 8) + 1u) * 0x1.0p-24f;
-  const float u2 = (float)(b >> 8) * 0x1.0p-24f;
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincospif(2.0f * u2, &s, &c);
-  *z0 = r * c;
-  *z1 = r * s;
-}
 
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -166,12 +141,12 @@ draw_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ std_codes,
     const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
 #pragma unroll
     for (int k = 0; k < kPerThread / 4; ++k) {
-      const uint4 r = philox4x32_10(
+      const uint4 r = qbn::philox4x32_10(
           make_uint4((uint32_t)t, (uint32_t)(t >> 32), (uint32_t)k,
                      (uint32_t)offset),
           key);
-      box_muller(r.x, r.y, &eps[4 * k], &eps[4 * k + 1]);
-      box_muller(r.z, r.w, &eps[4 * k + 2], &eps[4 * k + 3]);
+      qbn::box_muller(r.x, r.y, &eps[4 * k], &eps[4 * k + 1]);
+      qbn::box_muller(r.z, r.w, &eps[4 * k + 2], &eps[4 * k + 3]);
     }
   }
 

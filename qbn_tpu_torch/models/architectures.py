@@ -1,9 +1,14 @@
-"""CIFAR ResNet-18 in int mode (port of BasicBlock and ResNet of
-qbn_tpu/models/architectures.py).
+"""Architectures (port of qbn_tpu/models/architectures.py).
 
-Widths 24/48/96/192, stages [2, 2, 2, 2], strides 1/2/2/2, avgpool 4, fc,
-softmax. Data layout NHWC; the network returns per-sample probabilities
-(B, S, classes), or the int8 activations at an `up_to` cut.
+* LeNet in float mode: conv(20, 5x5, pad 2) -> maxpool 2 -> conv(50) ->
+  maxpool 2 -> flatten -> fc 500 + ReLU -> fc out -> softmax (the convs
+  have no ReLU or BN). Returns (B, classes) probabilities.
+* CIFAR ResNet-18 in int mode: widths 24/48/96/192, stages [2, 2, 2, 2],
+  strides 1/2/2/2, avgpool 4, fc, softmax. Returns per-sample
+  probabilities (B, S, classes), or the int8 activations at an `up_to`
+  cut.
+
+Data layout NHWC.
 """
 
 from __future__ import annotations
@@ -16,10 +21,69 @@ from torch import nn
 from qbn_tpu_torch.config import QuantConfig
 from qbn_tpu_torch.models.layers import (
     ConvBlock, DenseBlock, InputQuant, ResidualAdd, avg_pool, dequant,
-    flatten, scope,
+    flatten, max_pool, scope,
 )
 
 CUTS = ("stem", "stage0", "stage1", "stage2", "stage3", "pool")
+
+
+def _child(kl, name):
+    """The KL subtree of child `name` (None when KL is not collected)."""
+    return None if kl is None else kl.setdefault(name, {})
+
+
+class LeNet(nn.Module):
+    """MNIST LeNet-style conv net, float mode."""
+
+    def __init__(self, output_size: int = 10, stochastic: bool = False,
+                 sigma_prior: float = 1.0,
+                 quant: QuantConfig = QuantConfig()):
+        super().__init__()
+        kw = dict(stochastic=stochastic, sigma_prior=sigma_prior,
+                  quant=quant)
+        self.input_quant = InputQuant(quant)
+        self.conv_0 = ConvBlock(20, (5, 5), (1, 1), padding=2,
+                                use_bias=False, std_init=-10.0, **kw)
+        self.conv_1 = ConvBlock(50, (5, 5), (1, 1), padding=2,
+                                use_bias=False, std_init=-10.0, **kw)
+        self.fc_0 = DenseBlock(500, use_bias=False, relu=True,
+                               std_init=-3.0, **kw)
+        self.fc_1 = DenseBlock(output_size, use_bias=False, std_init=-3.0,
+                               **kw)
+
+    def init(self, generator, input_size: Sequence[int]):
+        """The 'params' tree for (H, W, C) inputs."""
+        h, w, c = input_size
+        params = {"conv_0": self.conv_0.init(generator, c)}
+        h, w = (d // 2 for d in self.conv_0.out_hw(h, w))
+        params["conv_1"] = self.conv_1.init(generator, 20)
+        h, w = (d // 2 for d in self.conv_1.out_hw(h, w))
+        params["fc_0"] = self.fc_0.init(generator, h * w * 50)
+        params["fc_1"] = self.fc_1.init(generator, 500)
+        return params
+
+    def forward(self, x, variables, *, train: bool = False,
+                mode: str = "float", noise=None, kl: dict = None):
+        """x: (B, H, W, C) float32 images; noise: the noise source of the
+        stochastic layers; kl: a dict that receives each layer's KL under
+        its name, as qbn_tpu's 'kl' collection. Returns (B, classes)
+        probabilities."""
+        if mode != "float":
+            raise NotImplementedError(f"LeNet mode '{mode}' is not ported")
+        kw = dict(train=train, noise=noise)
+        x = self.input_quant(x, scope(variables, "input_quant"))
+        x = self.conv_0(x, scope(variables, "conv_0"),
+                        kl=_child(kl, "conv_0"), **kw)
+        x = max_pool(x, 2, 2)
+        x = self.conv_1(x, scope(variables, "conv_1"),
+                        kl=_child(kl, "conv_1"), **kw)
+        x = max_pool(x, 2, 2)
+        x = flatten(x)                      # (h, w, c) order, as in NHWC
+        x = self.fc_0(x, scope(variables, "fc_0"), kl=_child(kl, "fc_0"),
+                      **kw)
+        x = self.fc_1(x, scope(variables, "fc_1"), kl=_child(kl, "fc_1"),
+                      **kw)
+        return torch.softmax(dequant(x), dim=-1)
 
 
 class BasicBlock(nn.Module):
@@ -39,11 +103,13 @@ class BasicBlock(nn.Module):
         self.add = ResidualAdd(quant, relu=True)
 
     def forward(self, x, variables):
-        out = self.conv_bn_relu(x, scope(variables, "conv_bn_relu"))
-        out = self.conv_bn(out, scope(variables, "conv_bn"))
+        out = self.conv_bn_relu(x, scope(variables, "conv_bn_relu"),
+                                mode="int")
+        out = self.conv_bn(out, scope(variables, "conv_bn"), mode="int")
         shortcut = x
         if self.shortcut is not None:
-            shortcut = self.shortcut(x, scope(variables, "shortcut"))
+            shortcut = self.shortcut(x, scope(variables, "shortcut"),
+                                     mode="int")
         return self.add(out, shortcut, scope(variables, "add"))
 
 
@@ -80,8 +146,8 @@ class ResNet(nn.Module):
         `up_to` (one of CUTS)."""
         if up_to is not None and up_to not in CUTS:
             raise ValueError(f"up_to must be one of {CUTS}")
-        x = self.input_quant(x, scope(variables, "input_quant"))
-        x = self.stem(x, scope(variables, "stem"))
+        x = self.input_quant(x, scope(variables, "input_quant"), mode="int")
+        x = self.stem(x, scope(variables, "stem"), mode="int")
         if up_to == "stem":
             return x
         for s, names in enumerate(self.stages):
@@ -92,5 +158,5 @@ class ResNet(nn.Module):
         x = flatten(avg_pool(x, 4))
         if up_to == "pool":
             return x
-        x = self.fc(x, scope(variables, "fc"))
+        x = self.fc(x, scope(variables, "fc"), mode="int")
         return torch.softmax(dequant(x), dim=-1)

@@ -1,11 +1,17 @@
-"""INT-mode layers in the merged layout (port of the int branches of
-qbn_tpu/models/layers.py).
+"""Layers in float mode and in INT mode's merged layout (port of the float
+and int branches of qbn_tpu/models/layers.py).
 
 The modules hold the architecture only. Their state is a variable tree in
 flax's nesting (collections 'qconst', 'sampled', 'params', ... each keyed
 by module name), passed to `forward` and narrowed to a child's subtree with
 `scope`, so that each module reads the constants its flax counterpart
 wrote, under the same path.
+
+Each block's `forward` takes qbn_tpu's `mode`: 'float' (the float32
+forward; Bayes-by-backprop blocks train by local reparametrisation and
+evaluate on one weight sample, drawing from a noise source, and write
+their KL into the `kl` dict given) or 'int'. `init` makes a block's
+'params' subtree with qbn_tpu's init laws from a torch.Generator.
 
 INT Monte-Carlo evaluation runs every posterior sample in ONE forward:
 conv activations are (B, H, W, S*C) int8 codes with sample-major channel
@@ -15,14 +21,19 @@ layout from the shared (B, H, W, C) input (QTensor).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from qbn_tpu_torch.config import QuantConfig
 from qbn_tpu_torch.ops.integer import int_conv_merged, int_dense_merged
+from qbn_tpu_torch.ops.stochastic import (
+    conv_nhwc, kl_divergence, local_reparam_conv, local_reparam_dense_auto,
+    sample_weights, softplus)
 
 
 @dataclass
@@ -62,16 +73,92 @@ def dequantize_codes(codes, scale):
     return codes.to(torch.float32) * scale
 
 
+# -- init laws (qbn_tpu's), drawn on the CPU from a torch.Generator ------
+
+def _uniform(generator, shape, bound):
+    out = torch.empty(shape, dtype=torch.float32)
+    return out.uniform_(-bound, bound, generator=generator)
+
+
+def _torch_linear_init(generator, shape):
+    """torch nn.Linear/Conv2d default init: U(-1/sqrt(fan_in), +)."""
+    fan_in = shape[0] if len(shape) == 2 else shape[0] * shape[1] * shape[2]
+    return _uniform(generator, shape, 1.0 / math.sqrt(fan_in))
+
+
+def _bbb_weight_init(generator, shape):
+    return _uniform(generator, shape, 0.01)
+
+
+def _torch_bias_init(fan_in: int):
+    """torch default bias init: U(-1/sqrt(fan_in of the weight), +)."""
+    def init(generator, shape):
+        return _uniform(generator, shape, 1.0 / float(fan_in) ** 0.5)
+    return init
+
+
+def _init_params(generator, kshape, features, stochastic, std_init,
+                 use_bias, fan_in):
+    """{'kernel', 'std', 'bias'} of a dense or conv block, in qbn_tpu's
+    order and laws."""
+    w_init = _bbb_weight_init if stochastic else _torch_linear_init
+    params = {"kernel": w_init(generator, kshape)}
+    if stochastic:
+        params["std"] = torch.full(kshape, float(std_init))
+    if use_bias:
+        b_init = _bbb_weight_init if stochastic else _torch_bias_init(fan_in)
+        params["bias"] = b_init(generator, (features,))
+    return params
+
+
+def _sow_kl(kl, kernel, sp, sigma_prior):
+    """KL of the posterior against the zero-mean sigma_prior Gaussian prior
+    into kl['kl'] (qbn_tpu's sow into the 'kl' collection)."""
+    if kl is not None:
+        kl["kl"] = kl_divergence(kernel, sp, torch.zeros_like(kernel),
+                                 torch.full_like(sp, sigma_prior))
+
+
 class DenseBlock(nn.Module):
-    """Dense layer + optional fused ReLU, Bayes-by-backprop, int mode."""
+    """Dense layer + optional fused ReLU, pointwise or Bayes-by-backprop."""
 
     def __init__(self, features: int, use_bias: bool = True,
-                 relu: bool = False, quant: QuantConfig = QuantConfig()):
+                 stochastic: bool = False, relu: bool = False,
+                 sigma_prior: float = 1.0, std_init: float = -3.0,
+                 quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.features, self.use_bias, self.relu = features, use_bias, relu
-        self.quant = quant
+        self.stochastic, self.sigma_prior = stochastic, sigma_prior
+        self.std_init, self.quant = std_init, quant
 
-    def forward(self, x, variables):
+    def init(self, generator, in_features: int):
+        return _init_params(generator, (in_features, self.features),
+                            self.features, self.stochastic, self.std_init,
+                            self.use_bias, in_features)
+
+    def forward(self, x, variables, *, train: bool = False,
+                mode: str = "float", noise=None, kl: Optional[dict] = None):
+        if mode == "int":
+            return self._int_forward(x, variables)
+        if mode != "float":
+            raise NotImplementedError(f"mode '{mode}' is not ported")
+        p = variables["params"]
+        kernel, bias = p["kernel"], p.get("bias")
+        if not self.stochastic:
+            y = torch.matmul(x, kernel)
+            y = y + bias if bias is not None else y
+        else:
+            sp = softplus(p["std"])
+            _sow_kl(kl, kernel, sp, self.sigma_prior)
+            if train:
+                y = local_reparam_dense_auto(x, kernel, sp, noise, bias,
+                                             fused=self.quant.tpu_fused)
+            else:
+                y = torch.matmul(x, sample_weights(kernel, sp, noise))
+                y = y + bias if bias is not None else y
+        return torch.relu(y) if self.relu else y
+
+    def _int_forward(self, x, variables):
         qc = variables["qconst"]["q"]
         presampled = variables["sampled"]["w"]          # (S, F, O)
         bias = variables["params"]["bias"] if self.use_bias else None
@@ -85,18 +172,56 @@ class DenseBlock(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv (BN folded into the int constants) + optional fused ReLU,
-    Bayes-by-backprop, int mode."""
+    """Conv + optional fused ReLU, pointwise or Bayes-by-backprop. Float
+    mode has no batch norm yet; in int mode BN is folded into the int
+    constants."""
 
     def __init__(self, features: int, kernel_size: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1), padding: int = 0,
-                 relu: bool = False, quant: QuantConfig = QuantConfig()):
+                 use_bias: bool = False, stochastic: bool = False,
+                 relu: bool = False, sigma_prior: float = 1.0,
+                 std_init: float = -10.0, quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.features, self.kernel_size = features, tuple(kernel_size)
         self.strides, self.padding = tuple(strides), padding
-        self.relu, self.quant = relu, quant
+        self.use_bias, self.stochastic, self.relu = use_bias, stochastic, relu
+        self.sigma_prior, self.std_init, self.quant = (sigma_prior, std_init,
+                                                       quant)
 
-    def forward(self, x, variables):
+    def init(self, generator, cin: int):
+        kshape = (*self.kernel_size, cin, self.features)
+        return _init_params(generator, kshape, self.features,
+                            self.stochastic, self.std_init, self.use_bias,
+                            math.prod(kshape[:3]))
+
+    def out_hw(self, h: int, w: int) -> Tuple[int, int]:
+        (kh, kw), (sh, sw), p = self.kernel_size, self.strides, self.padding
+        return (h + 2 * p - kh) // sh + 1, (w + 2 * p - kw) // sw + 1
+
+    def forward(self, x, variables, *, train: bool = False,
+                mode: str = "float", noise=None, kl: Optional[dict] = None):
+        if mode == "int":
+            return self._int_forward(x, variables)
+        if mode != "float":
+            raise NotImplementedError(f"mode '{mode}' is not ported")
+        p = variables["params"]
+        kernel, bias = p["kernel"], p.get("bias")
+        if not self.stochastic:
+            y = conv_nhwc(x, kernel, self.strides, self.padding)
+            y = y + bias if bias is not None else y
+        else:
+            sp = softplus(p["std"])
+            _sow_kl(kl, kernel, sp, self.sigma_prior)
+            if train:
+                y = local_reparam_conv(x, kernel, sp, noise, self.strides,
+                                       self.padding, bias)
+            else:
+                y = conv_nhwc(x, sample_weights(kernel, sp, noise),
+                              self.strides, self.padding)
+                y = y + bias if bias is not None else y
+        return torch.relu(y) if self.relu else y
+
+    def _int_forward(self, x, variables):
         qc = variables["qconst"]["q"]
         presampled = variables["sampled"]["w"]  # (S, kh, kw, cin, cout)
         a_lo, a_hi = self.quant.a_bounds
@@ -131,13 +256,16 @@ class ResidualAdd(nn.Module):
 
 
 class InputQuant(nn.Module):
-    """QuantStub equivalent: float input -> activation codes."""
+    """QuantStub equivalent: float input -> activation codes in int mode,
+    the input itself in float mode."""
 
     def __init__(self, quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.quant = quant
 
-    def forward(self, x, variables):
+    def forward(self, x, variables, *, mode: str = "float"):
+        if mode == "float":
+            return x
         qc = variables["qconst"]["q"]
         s, z = qc["scale"], qc["zp"]
         a_lo, a_hi = self.quant.a_bounds
@@ -145,8 +273,20 @@ class InputQuant(nn.Module):
 
 
 def dequant(x):
-    """Codes back to float32; merged dense (B, S, F) stays (B, S, F)."""
+    """Codes back to float32; merged dense (B, S, F) stays (B, S, F). A
+    float tensor passes through."""
+    if isinstance(x, torch.Tensor):
+        return x
     return dequantize_codes(x.codes, x.scale)
+
+
+def max_pool(x, window: int = 2, stride: int = 2):
+    """Max pool of float NHWC activations, 'VALID' windows. (Pooling of
+    int codes goes with the int LeNet, not ported yet.)"""
+    if not isinstance(x, torch.Tensor):
+        raise NotImplementedError("max_pool of int codes is not ported")
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
 
 
 def avg_pool(x: MergedQTensor, window: int) -> MergedQTensor:
@@ -161,9 +301,13 @@ def avg_pool(x: MergedQTensor, window: int) -> MergedQTensor:
     return MergedQTensor(pooled.to(torch.int8), x.scale, x.zp, s=x.s)
 
 
-def flatten(x: MergedQTensor) -> MergedQTensor:
-    """(B, H, W, S*C) -> (B, S, H*W*C): per-sample flattening, so that the
-    dense weights see the feature order of one sample's (H, W, C)."""
+def flatten(x):
+    """Float (B, H, W, C) -> (B, H*W*C) in (h, w, c) order, as qbn_tpu's
+    NHWC activations flatten. Merged codes (B, H, W, S*C) -> (B, S, H*W*C):
+    per-sample flattening, so that the dense weights see the feature order
+    of one sample's (H, W, C)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(x.shape[0], -1)
     b, h, w, sc = x.codes.shape
     c = sc // x.s
     codes = x.codes.reshape(b, h, w, x.s, c).permute(0, 3, 1, 2, 4)

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain `extern "C"` interface and includes no
 PyTorch header, so nvcc compiles it in seconds. The shared library goes to
 `qbn_tpu_torch/_build/` (listed in .gitignore) at first use in a process
-and is rebuilt when its source is newer. Nothing is built at import time.
+and is rebuilt when its source or a shared header (`csrc/*.cuh`) is
+newer. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -40,11 +42,12 @@ def nvcc_path() -> str:
 
 def build(name: str, force: bool = False) -> Path:
     """Compile csrc/<name>.cu into _build/lib<name>.so if it is missing or
-    older than its source (or `force`); returns the library's path."""
+    older than its source or a header (or `force`); returns its path."""
     src = CSRC_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if (not force and lib.exists()
-            and lib.stat().st_mtime >= src.stat().st_mtime):
+    newest = max(p.stat().st_mtime
+                 for p in [src, *CSRC_DIR.glob("*.cuh")])
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -63,6 +66,14 @@ def build(name: str, force: bool = False) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_all(names, force: bool = False) -> dict:
+    """Build several sources at once, one nvcc each, all started together;
+    returns {name: library path}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {n: pool.submit(build, n, force) for n in names}
+        return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

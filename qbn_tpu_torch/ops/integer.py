@@ -27,10 +27,10 @@ stage-1 48->48 conv at B=256, S=100 came out 0.125 off on an H100.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
+
+from qbn_tpu_torch.utils import full_float32
 
 _F32_EXACT_K = (1 << 24) // (127 * 127)          # 1040
 _CENTERED_K = (1 << 24) // (254 * 127)           # 520
@@ -40,18 +40,6 @@ def exact_dtype(k: int) -> torch.dtype:
     """The float type whose matrix-product sums of K products of int8
     codes are exact."""
     return torch.float32 if k <= _F32_EXACT_K else torch.float64
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Full float32 in cuBLAS products (TF32 keeps 10 mantissa bits and
-    would round the integer sums)."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def conv_sum(x, w, stride, padding: int, groups: int):
@@ -152,7 +140,7 @@ def int_dense_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
     xs = x_codes.to(dt)
     if shared_x:
         xs = xs.unsqueeze(1).expand(-1, s, -1)
-    with no_tf32():
+    with full_float32():     # TF32 would round the integer sums
         # (S, B, F) @ (S, F, O) -> (B, S, O)
         acc = torch.bmm(xs.transpose(0, 1), w_codes.to(dt)).transpose(0, 1)
     rowsum = x_codes.to(torch.int64).sum(-1)

@@ -1,0 +1,150 @@
+"""Stochastic layer math of Bayes-by-backprop (port of
+qbn_tpu/ops/stochastic.py): local reparametrisation for training, weight
+sampling for evaluation, the closed-form KL.
+
+Conventions as in qbn_tpu: NHWC activations, HWIO conv kernels, dense
+kernels (in, out), float32. Where qbn_tpu takes a PRNG key, the port takes
+a noise source: a callable `noise(shape, device)` returning standard
+normals, drawn at the same points and in the same shapes as qbn_tpu draws
+them. `GeneratorNoise` wraps a torch.Generator (the main path);
+`QueueNoise` hands out given arrays in call order (tests feed it the
+normals that a qbn_tpu run receives).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from qbn_tpu_torch.ops.bbb_dense import VAR_EPS, bbb_dense
+
+
+class GeneratorNoise:
+    """Standard normals from a torch.Generator, on the generator's device
+    (then moved to the caller's device)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        eps = torch.randn(tuple(shape), generator=self.generator,
+                          device=self.generator.device)
+        return eps.to(device)
+
+
+class QueueNoise:
+    """The given arrays (numpy or torch), one per draw, in call order;
+    raises on a shape that does not match or when the queue runs dry."""
+
+    def __init__(self, arrays: Iterable):
+        self.queue = list(arrays)
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        if not self.queue:
+            raise RuntimeError(f"noise queue is empty (asked for {shape})")
+        eps = self.queue.pop(0)
+        if not isinstance(eps, torch.Tensor):
+            eps = torch.from_numpy(np.array(eps))
+        eps = eps.to(torch.float32)
+        if tuple(eps.shape) != tuple(shape):
+            raise ValueError(f"queued noise has shape {tuple(eps.shape)}, "
+                             f"the draw asks for {tuple(shape)}")
+        return eps.to(device)
+
+
+def softplus(x):
+    """log(1 + e^x) as jnp.logaddexp(x, 0) computes it. F.softplus returns
+    x itself above its threshold of 20, which logaddexp does not."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def kl_divergence(mu, sigma, mu_prior, sigma_prior):
+    """Closed-form KL(N(mu, sigma) || N(mu_prior, sigma_prior)), summed."""
+    return 0.5 * torch.sum(
+        2.0 * torch.log(sigma_prior / sigma)
+        - 1.0
+        + (sigma / sigma_prior) ** 2
+        + ((mu_prior - mu) / sigma_prior) ** 2
+    )
+
+
+def local_reparam_dense(x, w, sp_std, noise, bias=None):
+    """Training-mode BBB dense layer, plain PyTorch:
+    x @ w + sqrt(1e-8 + x^2 @ sp_std^2) * eps (+ bias), eps of (B, out)."""
+    mean = torch.matmul(x, w)
+    var = torch.matmul(torch.square(x), torch.square(sp_std))
+    std = torch.sqrt(VAR_EPS + var)
+    out = mean + std * noise(mean.shape, mean.device)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+class LocalReparamDenseFused(torch.autograd.Function):
+    """The fused local-reparametrisation dense with its hand-written
+    gradient (port of qbn_tpu's _lrd_fused / _lrd_fused_bwd). Forward:
+    `ops.bbb_dense.bbb_dense` (the CUDA kernel for CUDA tensors, the plain
+    version for CPU ones). Backward: the closed form of _lrd_fused_bwd in
+    torch.matmul; it needs the forward's noise."""
+
+    @staticmethod
+    def forward(ctx, x, w, sp, noise):
+        x, w, sp, noise = (t.contiguous() for t in (x, w, sp, noise))
+        ctx.save_for_backward(x, w, sp, noise)
+        return bbb_dense(x, w, sp, noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        # out = x@w + sqrt(VAR_EPS + x^2 @ sp^2) * eps
+        x, w, sp, noise = ctx.saved_tensors
+        sp2 = torch.square(sp)
+        var = torch.matmul(torch.square(x), sp2)
+        sigma = torch.sqrt(VAR_EPS + var)
+        dvar = g * noise / (2.0 * sigma)
+        dx = torch.matmul(g, w.T) + 2.0 * x * torch.matmul(dvar, sp2.T)
+        dw = torch.matmul(x.T, g)
+        dsp = 2.0 * sp * torch.matmul(torch.square(x).T, dvar)
+        return dx, dw, dsp, g * sigma
+
+
+def local_reparam_dense_auto(x, w, sp_std, noise, bias=None,
+                             fused: bool = False):
+    """local_reparam_dense, or with `fused` (and a 2-D x) the fused form:
+    the noise is drawn outside the kernel, in the same (B, out) shape as
+    the plain path draws it, so the two agree given the same source."""
+    if fused and x.ndim == 2:
+        eps = noise((x.shape[0], w.shape[1]), x.device)
+        out = LocalReparamDenseFused.apply(x, w, sp_std, eps)
+        return out + bias if bias is not None else out
+    return local_reparam_dense(x, w, sp_std, noise, bias)
+
+
+def conv_nhwc(x, w, strides, padding: int):
+    """NHWC x HWIO -> NHWC convolution. The NHWC tensor viewed as NCHW is
+    channels_last, which cuDNN takes as it is."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 stride=tuple(strides), padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def local_reparam_conv(x, w, sp_std, noise, strides, padding: int,
+                       bias=None):
+    """Training-mode BBB conv via local reparametrisation: x (B, H, W,
+    Cin), w / sp_std (kh, kw, Cin, Cout), eps of the output's shape."""
+    mean = conv_nhwc(x, w, strides, padding)
+    var = conv_nhwc(torch.square(x), torch.square(sp_std), strides, padding)
+    std = torch.sqrt(VAR_EPS + var)
+    out = mean + std * noise(mean.shape, mean.device)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def sample_weights(w, sp_std, noise):
+    """Evaluation-mode BBB weight sample w + sp_std * eps, one draw shared
+    across the batch."""
+    return w + sp_std * noise(w.shape, w.device)

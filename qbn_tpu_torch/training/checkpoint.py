@@ -1,9 +1,12 @@
-"""Checkpoint reading: flax msgpack variable trees, decoded in pure Python
-(port of the reading half of qbn_tpu/training/checkpoint.py).
+"""Checkpoints: flax msgpack variable trees, encoded and decoded in pure
+Python (port of qbn_tpu/training/checkpoint.py's save_variables and
+load_variables).
 
 qbn_tpu writes checkpoints with `flax.serialization.msgpack_serialize`.
-The port reads them with its own small msgpack decoder, so that it needs
-neither flax nor the msgpack package. It decodes maps, arrays, str, bin,
+The port writes the same bytes for the same tree (`save_variables`: maps
+with str keys, every leaf an ndarray extension) and reads them with its
+own small msgpack decoder, so that it needs neither flax nor the msgpack
+package. It decodes maps, arrays, str, bin,
 ints, floats, nil and bool, and flax's extension types: an ndarray
 (ext 1, whose payload is a msgpack array of shape, dtype name and raw
 bytes), a numpy scalar (ext 3, the same payload) and a complex (ext 2).
@@ -22,6 +25,7 @@ _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+_CHUNK_BYTES = 2 ** 30           # flax.serialization.MAX_CHUNK_SIZE
 
 
 class _Reader:
@@ -136,6 +140,93 @@ def msgpack_restore(encoded: bytes):
     """Nested dicts of numpy arrays, as flax.serialization.msgpack_restore
     returns them."""
     return _unchunk(unpackb(encoded))
+
+
+def _pack_uint(n: int, fix_max: int, fix_tag: int, tags) -> bytes:
+    """msgpack's smallest length header: fix_tag | n up to fix_max, else
+    the first of (tag, struct format) that holds n."""
+    if n <= fix_max:
+        return bytes([fix_tag | n])
+    for tag, fmt in tags:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n <= 0x7F:
+        return bytes([n])
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        for tag, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                         (0xCF, ">Q")):
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([tag]) + struct.pack(fmt, n)
+    for tag, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
+                     (0xD3, ">q")):
+        bits = 8 * struct.calcsize(fmt)
+        if -(1 << (bits - 1)) <= n:
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"int {n} out of msgpack range")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    n = len(payload)
+    if n in fixext:
+        head = bytes([fixext[n]])
+    else:
+        head = _pack_uint(n, -1, 0, ((0xC7, ">B"), (0xC8, ">H"),
+                                     (0xC9, ">I")))
+    return head + struct.pack(">b", code) + payload
+
+
+def packb(obj) -> bytes:
+    """msgpack bytes of a tree of dicts (str keys), lists/tuples, str,
+    bytes, int and numpy arrays (as flax's ndarray extension), byte for
+    byte as flax.serialization's packer writes them."""
+    if isinstance(obj, dict):
+        head = _pack_uint(len(obj), 15, 0x80, ((0xDE, ">H"), (0xDF, ">I")))
+        return head + b"".join(packb(k) + packb(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        head = _pack_uint(len(obj), 15, 0x90, ((0xDC, ">H"), (0xDD, ">I")))
+        return head + b"".join(packb(v) for v in obj)
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _pack_uint(len(raw), 31, 0xA0, ((0xD9, ">B"), (0xDA, ">H"),
+                                               (0xDB, ">I"))) + raw
+    if isinstance(obj, bytes):
+        return _pack_uint(len(obj), -1, 0, ((0xC4, ">B"), (0xC5, ">H"),
+                                            (0xC6, ">I"))) + obj
+    if isinstance(obj, np.ndarray):
+        payload = packb((obj.shape, obj.dtype.name, obj.tobytes("C")))
+        return _pack_ext(_EXT_NDARRAY, payload)
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        return _pack_int(obj)
+    raise TypeError(f"cannot msgpack {type(obj)}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """flax.serialization.msgpack_serialize of a tree of numpy arrays: the
+    keys of every map in sorted order, as JAX's tree_map leaves them.
+    flax splits an array over 2^30 bytes into chunks; the port's models
+    have none, so it raises instead."""
+    def canonical(node):
+        if isinstance(node, dict):
+            return {k: canonical(node[k]) for k in sorted(node)}
+        if isinstance(node, np.ndarray) and node.nbytes > _CHUNK_BYTES:
+            raise ValueError("array over flax's chunk size: not supported")
+        return node
+    return packb(canonical(tree))
+
+
+def save_variables(variables, path: str) -> None:
+    """Write a variable tree (tensor or numpy leaves) as qbn_tpu's
+    save_variables does: every leaf an ndarray."""
+    from qbn_tpu_torch.convert import to_numpy_state
+    with open(path, "wb") as fh:
+        fh.write(msgpack_serialize(to_numpy_state(variables)))
 
 
 def read_checkpoint(path: str):

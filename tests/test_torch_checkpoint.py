@@ -138,3 +138,88 @@ def test_from_jax_state_keeps_dtype_and_values(both):
             assert isinstance(dst[k], torch.Tensor)
             assert dst[k].numpy().dtype == v.dtype, k
             np.testing.assert_array_equal(dst[k].numpy(), v)
+
+
+# -- the writer -------------------------------------------------------------
+
+def test_packb_matches_msgpack_on_every_type():
+    """The port's encoder writes the bytes that msgpack (with flax's
+    extension hook) writes, at every length and integer boundary."""
+    ints = [0, 1, 127, 128, 255, 256, 65535, 65536, 2 ** 32 - 1, 2 ** 32,
+            2 ** 63, -1, -32, -33, -128, -129, -32768, -32769, -2 ** 31,
+            -2 ** 31 - 1, -2 ** 63]
+    obj = {
+        "ints": ints,
+        "strs": ["", "a" * 31, "b" * 32, "c" * 255, "d" * 256,
+                 "e" * 65536],
+        "bins": [b"", b"x" * 255, b"y" * 256, b"z" * 65536],
+        "map16": {str(i): i for i in range(16)},
+        "list16": list(range(16)),
+        "arr": {str(n): np.arange(n, dtype=np.float32) for n in
+                (0, 1, 2, 3, 4, 40, 70000)},
+        "i8": np.arange(-8, 8, dtype=np.int8).reshape(4, 4),
+        "scalar0d": np.asarray(2.5, np.float32),
+    }
+    from qbn_tpu_torch.training.checkpoint import packb
+    want = msgpack.packb(obj, default=serialization._msgpack_ext_pack,
+                         strict_types=True)
+    assert packb(obj) == want
+
+
+@pytest.fixture(scope="module")
+def trained_lenet():
+    """A LeNet state after two float training steps of the port (B=4),
+    validated after its epoch."""
+    from qbn_tpu_torch.flows import fit
+    from qbn_tpu_torch.presets import preset
+    cfg = preset("bbb", "mnist", tpu_fused=True, epochs=1, seed=3)
+    rng = np.random.default_rng(0)
+    batches = [(rng.random((4, 28, 28, 1), dtype=np.float32),
+                rng.integers(0, 10, 4)) for _ in range(2)]
+    _model, trainer, state = fit(cfg, batches, batches[:1], device="cpu")
+    (row,) = trainer.history
+    assert row["epoch"] == 0 and row["valid"]["error"] >= 0
+    assert all(np.isfinite(v) for v in {**row["train"],
+                                         **row["valid"]}.values())
+    return trainer.variables(state)
+
+
+def test_written_lenet_reads_back_bitwise(trained_lenet, tmp_path):
+    """The port writes a trained LeNet; flax's own serializer gives the
+    same bytes, and qbn_tpu's load_variables (into qbn_tpu's init of the
+    same model) and the port's reader read it back bitwise."""
+    import jax
+    from qbn_tpu.models.factory import build_model as j_build
+    from qbn_tpu.presets import preset as j_preset
+    from qbn_tpu.training.checkpoint import load_variables as j_load
+    from qbn_tpu.utils import init_variables as j_init
+    from qbn_tpu_torch.convert import to_numpy_state
+    from qbn_tpu_torch.training.checkpoint import save_variables
+
+    path = str(tmp_path / "weights.msgpack")
+    save_variables(trained_lenet, path)
+    want = dict(_leaves(to_numpy_state(trained_lenet)))
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    assert blob == serialization.msgpack_serialize(
+        to_numpy_state(trained_lenet))
+
+    jmodel = j_build(j_preset("bbb", "mnist"))
+    target = j_init(jmodel, jax.random.PRNGKey(0), jnp.zeros((1, 28, 28, 1)))
+    got_j = dict(_leaves(jax.tree.map(np.asarray, j_load(target, path))))
+    got_t = dict(_leaves(read_checkpoint(path)))
+    assert got_j.keys() == got_t.keys() == want.keys()
+    assert ("params", "fc_0", "kernel") in want
+    for k in want:
+        for got in (got_j[k], got_t[k]):
+            assert got.dtype == want[k].dtype and got.shape == want[k].shape
+            assert got.tobytes() == want[k].tobytes(), k
+
+
+def test_from_jax_state_requires_grad_only_params():
+    tree = {"params": {"fc": {"kernel": np.ones((2, 2), np.float32)}},
+            "kl": {"fc": {"kl": np.asarray(1.0, np.float32)}}}
+    t = from_jax_state(tree, requires_grad=True)
+    assert t["params"]["fc"]["kernel"].requires_grad
+    assert not t["kl"]["fc"]["kl"].requires_grad
+    assert not from_jax_state(tree)["params"]["fc"]["kernel"].requires_grad

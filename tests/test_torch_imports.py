@@ -1,15 +1,21 @@
-"""The port and chip_smoke.py import nothing of JAX or of the JAX package.
+"""The port and chip_smoke.py import nothing of JAX, of the JAX package or
+of what only the JAX package needs (flax, optax, msgpack); its entry points
+run on the card by default and raise without one.
 
 An AST scan of the sources, not sys.modules: the test process has JAX
 imported already."""
 
 import ast
+import inspect
 import pathlib
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "qbn_tpu", "parity"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "qbn_tpu",
+             "parity"}
 SOURCES = sorted((ROOT / "qbn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -33,3 +39,50 @@ def test_sources_found():
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_new_sources_scanned():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("qbn_tpu_torch/flows.py", "qbn_tpu_torch/ops/stochastic.py",
+                "qbn_tpu_torch/ops/bbb_dense.py",
+                "qbn_tpu_torch/training/optim.py",
+                "qbn_tpu_torch/training/trainer.py",
+                "qbn_tpu_torch/training/losses.py",
+                "qbn_tpu_torch/presets.py"):
+        assert rel in names, rel
+
+
+def _entry_points():
+    from qbn_tpu_torch.evaluation.mc import evaluate
+    from qbn_tpu_torch.flows import fit
+    from qbn_tpu_torch.models.factory import load_trained
+    from qbn_tpu_torch.training.trainer import Trainer
+    from qbn_tpu_torch.utils import init_variables
+    return {"fit": fit, "evaluate": evaluate, "load_trained": load_trained,
+            "Trainer": Trainer, "init_variables": init_variables}
+
+
+@pytest.mark.parametrize("name", ["fit", "evaluate", "load_trained",
+                                  "Trainer", "init_variables"])
+def test_entry_points_default_to_the_card(name):
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """With no CUDA device, the default device raises instead of carrying
+    on on the CPU."""
+    from qbn_tpu_torch.presets import preset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eps = _entry_points()
+    batch = [(np.zeros((2, 28, 28, 1), np.float32), np.zeros(2, np.int64))]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eps["fit"](preset("bbb", "mnist", tpu_fused=True, epochs=1), batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eps["evaluate"](None, {}, batch, samples=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eps["load_trained"](str(ROOT))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eps["Trainer"](None, None, None, "float", 1, 1, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eps["init_variables"](None, torch.Generator(), (28, 28, 1))
