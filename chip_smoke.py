@@ -12,22 +12,27 @@ inputs, both made from --seed with numpy. Phases, in order, each printing
 its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
-  2. build    nvcc of csrc/sample_weights.cu and csrc/bbb_dense.cu, one
-              process each, started together, with their register/spill
-              reports
+  2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
+              csrc/int_conv.cu, one process each, started together, with
+              their register/spill reports
   3. kernel   the posterior-draw kernel against its plain PyTorch version:
               bitwise with explicit noise at all 21 flagship layers (S=100)
               and on a pack holding a layer over 1024 rows of 512; with its
               own Philox normals, code histograms against the plain version
               fed torch.randn, and the moments of 10^7 of its normals
-  4. conv     the port's library convolutions at every conv shape of the
-              net at B=256, S=100: integral, equal to a float64 conv of
-              NCHW copies and to int64 window sums at sampled outputs
+  4. int_conv the int8 conv kernel against its plain version at every conv
+              shape of the net at B=256, S=100, bitwise: its raw int32
+              sums (equal to float64 convs, and to int64 window sums at
+              sampled outputs), its codes with relu off and on, a_hi 127,
+              63 and 3, the residual epilogue, the per-sample layout, and
+              K=1728 codes at the int8 edges (sums past 2^24)
   5. main     `evaluate` on the checkpoint (read by the port's own reader),
-              the kernel's launch count per batch, the kernel path against
-              the plain-draw path with the same explicit noise (identical
-              int8 codes at every up_to cut), and the card against the CPU
-              path on a small input
+              the draw kernel's launches (1 per batch) and the conv
+              kernel's (20 per batch), the kernel path against the plain
+              path with the same explicit noise (each of a forward's 20
+              convs against its plain version on the recorded inputs, and
+              identical int8 codes at every up_to cut), and the card
+              against the CPU path on a small input
   6. profile  one batch under torch.profiler: device time by kernel and
               the device's idle share
   7. bbb_dense the local-reparametrisation dense kernel against its plain
@@ -42,7 +47,9 @@ its seconds:
               B=8, and ms per steady step
   9. train_profile one training step under torch.profiler
  10. times    each kernel against its plain version and its bound (the
-              dense kernel also against two cuBLAS products + epilogue)
+              dense kernel also against two cuBLAS products + epilogue,
+              the conv kernel, per shape and per batch, also against the
+              float64 cuDNN conv alone)
 
 Any failed check raises and the run exits non-zero. The last lines are a
 `{"kernels": [...]}` JSON object and `{"ok": true, "device": {...}}`.
@@ -52,6 +59,8 @@ Needs one card; exits non-zero, printing no result, without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
@@ -70,12 +79,13 @@ from qbn_tpu_torch.evaluation.mc import (
     draw_sampled_weights, evaluate, mc_predict, plan_layers, presample_plan,
     sampled_tree)
 from qbn_tpu_torch.flows import fit
+from qbn_tpu_torch.models import layers as model_layers
 from qbn_tpu_torch.models.architectures import CUTS
 from qbn_tpu_torch.models.factory import build_model, load_trained
 from qbn_tpu_torch.ops import _build
 from qbn_tpu_torch.ops import bbb_dense as bd
+from qbn_tpu_torch.ops import int_conv as ic
 from qbn_tpu_torch.ops import sample_weights as sw
-from qbn_tpu_torch.ops.integer import _CENTERED_K, conv_sum
 from qbn_tpu_torch.ops.stochastic import (
     QueueNoise, local_reparam_dense_auto, softplus)
 from qbn_tpu_torch.presets import preset
@@ -92,16 +102,21 @@ KERNEL_SOURCE = "qbn_tpu_torch/csrc/sample_weights.cu"
 KERNEL_REPLACES = "qbn_tpu/ops/pallas/sample_weights.py:356"
 DENSE_SOURCE = "qbn_tpu_torch/csrc/bbb_dense.cu"
 DENSE_REPLACES = "qbn_tpu/ops/pallas/bbb_dense.py:73"
+CONV_SOURCE = "qbn_tpu_torch/csrc/int_conv.cu"
+# K3; the same kernel carries K4's contract (qbn_tpu/ops/pallas/bconv.py:225)
+CONV_REPLACES = "qbn_tpu/ops/pallas/conv_gemm.py:123"
 # the training path: the mnist BBB preset at its batch, 2 epochs x 10 steps
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 256, 2, 10
 # (B, K, N) of LeNet's fc_0 and fc_1 at that batch, and a ragged shape
 DENSE_SHAPES = [("fc_0", 256, 2450, 500), ("fc_1", 256, 500, 10),
                 ("ragged", 250, 333, 77)]
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# (non-tensor-core) operations/s, at the full 700 W power limit.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# (non-tensor-core) operations/s and int8 tensor-core operations/s, at the
+# full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core operations/s
 # fp32 operations per drawn code: the quantise chain of draw_code in the
 # kernel (26: two dequants, the noise quantise, the quantised multiply and
 # add, the clips and the convert) plus 4 for the Box-Muller normal
@@ -289,76 +304,162 @@ def phase_kernel(state, plan, samples, seed, dev):
 
 
 CONV_SHAPES = [
-    # (name, cin, cout, kernel, stride, input size, shared x)
-    ("stem", 3, 24, 3, 1, 32, True),
-    ("stage0 3x3", 24, 24, 3, 1, 32, False),
-    ("stage1 3x3/2", 24, 48, 3, 2, 32, False),
-    ("stage1 1x1/2", 24, 48, 1, 2, 32, False),
-    ("stage1 3x3", 48, 48, 3, 1, 16, False),
-    ("stage2 3x3/2", 48, 96, 3, 2, 16, False),
-    ("stage2 1x1/2", 48, 96, 1, 2, 16, False),
-    ("stage2 3x3", 96, 96, 3, 1, 8, False),
-    ("stage3 3x3/2", 96, 192, 3, 2, 8, False),
-    ("stage3 1x1/2", 96, 192, 1, 2, 8, False),
-    ("stage3 3x3", 192, 192, 3, 1, 4, False),
+    # (name, cin, cout, kernel, stride, input size, shared x, per batch)
+    ("stem", 3, 24, 3, 1, 32, True, 1),
+    ("stage0 3x3", 24, 24, 3, 1, 32, False, 4),
+    ("stage1 3x3/2", 24, 48, 3, 2, 32, False, 1),
+    ("stage1 1x1/2", 24, 48, 1, 2, 32, False, 1),
+    ("stage1 3x3", 48, 48, 3, 1, 16, False, 3),
+    ("stage2 3x3/2", 48, 96, 3, 2, 16, False, 1),
+    ("stage2 1x1/2", 48, 96, 1, 2, 16, False, 1),
+    ("stage2 3x3", 96, 96, 3, 1, 8, False, 3),
+    ("stage3 3x3/2", 96, 192, 3, 2, 8, False, 1),
+    ("stage3 1x1/2", 96, 192, 1, 2, 8, False, 1),
+    ("stage3 3x3", 192, 192, 3, 1, 4, False, 3),
 ]
+CONVS_PER_BATCH = sum(c[-1] for c in CONV_SHAPES)          # 20
 
 
-def _spot_check(x, w, stride, pad, groups, out, n=64, seed=0):
-    """n outputs of a conv recomputed as int64 window sums, independently
-    of any library convolution."""
+def _conv_inputs(batch, samples, shape, g, dev):
+    """Random int8 codes and weights, a bias and qparams near the flagship's
+    (weight zero point -6, scales of its stage-0 layer) at one conv shape."""
+    _name, cin, cout, k, _stride, hw, shared, _n = shape
+    xc = cin if shared else samples * cin
+    x = torch.randint(-127, 128, (batch, hw, hw, xc), generator=g,
+                      device=dev, dtype=torch.int8)
+    w = torch.randint(-128, 128, (samples, k, k, cin, cout), generator=g,
+                      device=dev, dtype=torch.int8)
+    bias = torch.randn((cout,), generator=g, device=dev) * 0.5
+    return x, w, bias
+
+
+def _f32(v, dev):
+    return torch.tensor(v, dtype=torch.float32, device=dev)
+
+
+def _i32(v, dev):
+    return torch.tensor(v, dtype=torch.int32, device=dev)
+
+
+def _out_qparams(acc, win, x_scale, w_scale, w_zp, a_hi):
+    """out_scale / out_zp that spread the conv's outputs over the codes
+    0..a_hi (from the exact sums of the first 8 images), zp mid-grid."""
+    y = ((acc[:8].double() - int(w_zp) * win[:8].double()[..., None])
+         * float(x_scale) * float(w_scale))
+    return (_f32(2 * float(y.std()) / (a_hi + 1), acc.device),
+            _i32(a_hi // 2, acc.device))
+
+
+def _spot_check(x, w, stride, pad, shared, acc, win, n=64, seed=0):
+    """n raw sums of the kernel recomputed as int64 window sums,
+    independently of any library convolution."""
     g = torch.Generator().manual_seed(seed)
-    b, ho, wo, o = out.shape
-    cin, k = w.shape[1], w.shape[2]
+    b, ho, wo, s, cout = acc.shape
+    k, cin = w.shape[1], w.shape[3]
     xp = F.pad(x.to(torch.int64), (0, 0, pad, pad, pad, pad))
     for _ in range(n):
-        bi, hi, wi, oi = (int(torch.randint(0, m, (), generator=g))
-                          for m in (b, ho, wo, o))
-        gi = oi // (o // groups)
-        win = xp[bi, hi * stride:hi * stride + k, wi * stride:wi * stride + k,
-                 gi * cin:(gi + 1) * cin]
-        ref = int((win * w[oi].to(torch.int64).permute(1, 2, 0)).sum())
-        check(float(out[bi, hi, wi, oi]) == ref,
-              f"spot check at {(bi, hi, wi, oi)}: {float(out[bi, hi, wi, oi])}"
-              f" != {ref}")
+        bi, hi, wi, si, oi = (int(torch.randint(0, m, (), generator=g))
+                              for m in (b, ho, wo, s, cout))
+        c0 = 0 if shared else si * cin
+        win_x = xp[bi, hi * stride:hi * stride + k,
+                   wi * stride:wi * stride + k, c0:c0 + cin]
+        ref = int((win_x * w[si, :, :, :, oi].to(torch.int64)).sum())
+        check(int(acc[bi, hi, wi, si, oi]) == ref,
+              f"spot check at {(bi, hi, wi, si, oi)}: "
+              f"{int(acc[bi, hi, wi, si, oi])} != {ref}")
+        check(int(win[bi, hi, wi, si]) == int(win_x.sum()),
+              f"window sum at {(bi, hi, wi, si)}")
 
 
-def phase_conv(batch, samples, seed, dev):
-    """The port's exact conv sums (and window sums where the net takes
-    them) at every conv shape: integral, equal to a float64 convolution
-    of NCHW-contiguous copies, and equal to int64 window sums at sampled
-    outputs."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    for name, cin, cout, k, stride, hw, shared in CONV_SHAPES:
-        groups = 1 if shared else samples
-        xc = cin if shared else samples * cin
-        x = torch.randint(-127, 128, (batch, hw, hw, xc), generator=g,
-                          device=dev, dtype=torch.int8)
-        w = torch.randint(-128, 128, (samples * cout, cin, k, k),
-                          generator=g, device=dev).float()
-        weights = [("w", w)]
-        if k * k * cin > _CENTERED_K:
-            weights.append(("winsum", torch.ones(
-                (1 if shared else samples, cin, k, k), device=dev)))
-        for what, wt in weights:
-            t0 = time.perf_counter()
-            got = conv_sum(x, wt, (stride, stride), k // 2, groups)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0)
-            check(bool((got == got.round()).all()),
-                  f"{name} {what}: conv sums not integral")
-            ref = F.conv2d(x.double().permute(0, 3, 1, 2).contiguous(),
-                           wt.double(), stride=stride, padding=k // 2,
-                           groups=groups).permute(0, 2, 3, 1)
-            err = float((got - ref).abs().max())
-            print(f"conv {name} {what}: K={k * k * cin} {str(got.dtype)[6:]}"
-                  f" out {tuple(got.shape)} max|port - f64 NCHW| {err} "
-                  f"({ms:.1f} ms, first call)")
-            check(err == 0, f"conv {name} {what} differs from float64")
-            _spot_check(x, wt, stride, k // 2, groups, got, seed=seed)
-            del got, ref
-        del x, w
+def _codes_err(a, b, what):
+    check(a.shape == b.shape and a.dtype == b.dtype == torch.int8,
+          f"{what}: shapes {tuple(a.shape)} {tuple(b.shape)}")
+    err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+    check(err == 0, f"{what}: kernel differs from plain by {err} codes")
+    return err
+
+
+def phase_int_conv(batch, samples, seed, dev):
+    """The conv kernel against its plain version at every conv shape of the
+    net, bitwise: raw int32 sums (and int64 window sums at sampled
+    outputs), then codes with relu off and on, a_hi 127 / 63 / 3, the
+    residual epilogue and the per-sample layout, and at K = 1728 codes at
+    the int8 edges. Returns the largest code difference seen."""
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    max_err = 0
+    for shape in CONV_SHAPES:
+        name, cin, cout, k, stride, hw, shared, _n = shape
+        x, w, bias = _conv_inputs(batch, samples, shape, g, dev)
+        st, pads = (stride, stride), [(k // 2, k // 2)] * 2
+        acc, win = ic.int_conv_sums(x, w, st, pads, shared)
+        p_acc, p_win = ic.int_conv_sums_plain(x, w, st, pads, shared)
+        check(torch.equal(acc, p_acc) and torch.equal(win, p_win),
+              f"{name}: raw sums differ from the float64 convs")
+        _spot_check(x, w, stride, k // 2, shared, acc, win, seed=seed)
+        x_scale, w_scale, w_zp = (_f32(0.0794982761, dev),
+                                  _f32(0.00115220679, dev), _i32(-6, dev))
+        uniq = []
+        for relu, a_hi in ((False, 127), (True, 127), (True, 63), (True, 3)):
+            os_, oz = _out_qparams(acc, win, x_scale, w_scale, w_zp, a_hi)
+            a = (x, x_scale, w, w_scale, w_zp, bias, os_, oz, st, pads, 0,
+                 a_hi, relu, shared)
+            got = ic.int_conv_merged(*a)
+            want = ic.int_conv_merged_plain(*a)
+            max_err = max(max_err, _codes_err(
+                got, want, f"{name} relu={relu} a_hi={a_hi}"))
+            uniq.append(len(torch.unique(got)))
+            if relu and a_hi == 127 and not shared:
+                # the per-sample layout (K3's entry): (S, B, H, W, cin)
+                xs = x.reshape(batch, hw, hw, samples, cin).permute(
+                    3, 0, 1, 2, 4).contiguous()
+                per = ic.mc_group_conv(xs, x_scale, w, w_scale, w_zp, bias,
+                                       os_, oz, 0, a_hi, relu, st, pads)
+                del xs
+                max_err = max(max_err, _codes_err(
+                    per.permute(1, 2, 3, 0, 4).reshape(want.shape), want,
+                    f"{name} per-sample layout"))
+                del per
+                # the residual epilogue on the relu=True output's grid
+                res = torch.randint(-60, 60, want.shape, generator=g,
+                                    device=dev, dtype=torch.int8)
+                rq = dict(residual=res, res_scale=_f32(0.105613649, dev),
+                          res_out_scale=_f32(0.124463566, dev),
+                          res_out_zp=_i32(63, dev), res_relu=True)
+                got = ic.int_conv_merged(*a, **rq)
+                want = ic.int_conv_merged_plain(*a, **rq)
+                max_err = max(max_err, _codes_err(got, want,
+                                                  f"{name} residual"))
+                del res
+            del got, want
+        print(f"int_conv {name}: K={k * k * cin} B={batch} S={samples} raw "
+              "sums == float64 convs == int64 windows (64 sampled); codes "
+              f"== plain (relu off/on, a_hi 127/63/3"
+              f"{'' if shared else ', per-sample layout, residual'}); "
+              f"distinct codes {uniq}", flush=True)
+        del x, w, acc, win, p_acc, p_win
+        torch.cuda.empty_cache()
+
+    # K = 1728 with every code within 2 of the int8 edge: the sums and the
+    # window-sum correction pass 2^24, where float32 rounds them
+    name, cin, cout, k, stride, hw, _sh, _n = CONV_SHAPES[-1]
+    for x_sign, w_sign, zw in ((1, -1, 127), (-1, 1, -127), (1, 1, -125)):
+        x = (x_sign * torch.randint(125, 128, (batch, hw, hw, samples * cin),
+                                    generator=g, device=dev)).to(torch.int8)
+        w = (w_sign * torch.randint(126, 128, (samples, k, k, cin, cout),
+                                    generator=g, device=dev)).to(torch.int8)
+        a = (x, _f32(0.01, dev), w, _f32(1e-6, dev), _i32(zw, dev), None,
+             _f32(0.0037, dev), _i32(60, dev), (1, 1), [(1, 1)] * 2, 0, 127)
+        acc, _win = ic.int_conv_sums(x, w, (1, 1), [(1, 1)] * 2)
+        big = int(acc.abs().max())
+        check(big > 2 ** 24, f"adversarial sums stay below 2^24 ({big})")
+        max_err = max(max_err, _codes_err(ic.int_conv_merged(*a),
+                                          ic.int_conv_merged_plain(*a),
+                                          f"{name} edge codes zw={zw}"))
+        print(f"int_conv {name} edge codes (x sign {x_sign}, w sign "
+              f"{w_sign}, zw {zw}): max |acc| {big} > 2^24, codes == plain")
+        del x, w, acc
+    torch.cuda.empty_cache()
+
     # the dense head: (S, B, 192) x (S, 192, 10), float32 batched product
     x = torch.randint(-127, 128, (samples, batch, 192), generator=g,
                       device=dev).float()
@@ -370,6 +471,7 @@ def phase_conv(batch, samples, seed, dev):
                 .max())
     print(f"dense fc: K=192 float32 max|port - f64| {err}")
     check(err == 0, "dense product differs from float64")
+    return max_err
 
 
 def _same_codes(a, b, what):
@@ -379,10 +481,23 @@ def _same_codes(a, b, what):
     check(diff == 0, f"{what}: int8 codes differ by {diff}")
 
 
+@contextlib.contextmanager
+def conv_route(fn):
+    """Route the model's convs (models/layers.py's `int_conv_merged`)
+    through `fn(real, *args, **kwargs)` for the duration, from this script:
+    the package has no switch."""
+    real = model_layers.int_conv_merged
+    model_layers.int_conv_merged = functools.partial(fn, real)
+    try:
+        yield
+    finally:
+        model_layers.int_conv_merged = real
+
+
 def phase_main(seed, state, model, plan, dev):
     """`evaluate` on BATCHES batches, then the kernel path against the
-    plain-draw path and the card against the CPU; returns the draw
-    kernel's launches during `evaluate`."""
+    plain path and the card against the CPU; returns the draw kernel's
+    and the conv kernel's launches during `evaluate`."""
     rng = np.random.default_rng(seed)
     data = [(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
              rng.integers(0, 10, BATCH)) for _ in range(BATCHES)]
@@ -390,16 +505,19 @@ def phase_main(seed, state, model, plan, dev):
 
     def batches():
         for x, y in data:
-            seen.append(sw.launches)
+            seen.append((sw.launches, ic.launches))
             yield x, y
 
     gen = torch.Generator().manual_seed(seed)
-    sw.launches = 0
+    sw.launches = ic.launches = 0
     metric_state, probs, seconds = evaluate(model, state, batches(),
                                             SAMPLES, gen, dev)
-    launches = sw.launches
-    check(seen == list(range(BATCHES)), f"launches before each batch {seen}")
-    check(launches == BATCHES, f"launches {launches}")
+    launches, conv_launches = sw.launches, ic.launches
+    check(seen == [(i, CONVS_PER_BATCH * i) for i in range(BATCHES)],
+          f"(draw, conv) launches before each batch {seen}")
+    check(launches == BATCHES, f"draw launches {launches}")
+    check(conv_launches == CONVS_PER_BATCH * BATCHES,
+          f"conv launches {conv_launches} in {BATCHES} batches")
     es = BATCH * SAMPLES
     for i, (p, dt) in enumerate(zip(probs, seconds)):
         check(p.shape == (BATCH, 10), f"probs shape {tuple(p.shape)}")
@@ -407,7 +525,8 @@ def phase_main(seed, state, model, plan, dev):
         err = float((p.sum(-1) - 1).abs().max())
         check(err < 1e-5, f"probabilities sum to 1 within {err}")
         print(f"batch {i}: {1e3 * dt:.1f} ms, {es / dt:.0f} "
-              f"example-samples/s, draw launches so far {seen[i] + 1}")
+              f"example-samples/s, launches so far: draw {seen[i][0] + 1}, "
+              f"conv {seen[i][1] + CONVS_PER_BATCH}")
     metrics = {k: float(v) for k, v in cls_metrics_compute(
         metric_state).items()}
     print("metric state:", json.dumps(
@@ -417,10 +536,13 @@ def phase_main(seed, state, model, plan, dev):
     print(f"main path: {BATCHES} batches of B={BATCH} x "
           f"S={SAMPLES}, steady {1e3 * sum(steady) / len(steady):.1f} "
           f"ms/batch, {es * len(steady) / sum(steady):.0f} "
-          f"example-samples/s")
+          f"example-samples/s; conv kernel launches {conv_launches} "
+          f"({CONVS_PER_BATCH} per batch)")
 
     # the same batch with the same explicit noise through the kernel path
-    # and the plain-draw path: identical codes at every cut
+    # (draw kernel, conv kernel) and the plain path (plain draw, plain
+    # convs): identical codes at every cut. Each conv of a kernel-path
+    # forward is recorded and held against the plain conv on its inputs.
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     layers = plan_layers(state, plan)
     noise = [torch.randn((SAMPLES,) + tuple(w.shape), generator=g,
@@ -429,17 +551,38 @@ def phase_main(seed, state, model, plan, dev):
     with torch.no_grad():
         k_tree = draw_sampled_weights(state, plan, SAMPLES, noise=noise)
         p_tree = sampled_tree(plan, plain_draw(layers, noise))
+        calls = []
+
+        def record(real, *args, **kwargs):
+            out = real(*args, **kwargs)
+            calls.append((args, kwargs, out))
+            return out
+
+        with conv_route(record):
+            mc_predict(model, state, x, samples=SAMPLES, presampled=k_tree)
+        check(len(calls) == CONVS_PER_BATCH, f"{len(calls)} convs recorded")
+        for i, (args, kwargs, out) in enumerate(calls):
+            _codes_err(out, ic.int_conv_merged_plain(*args, **kwargs),
+                       f"conv {i} of the forward")
+        print(f"each of the forward's {len(calls)} convs == its plain "
+              "version on the recorded inputs")
+        del calls
         for cut in CUTS + (None,):
             a = mc_predict(model, state, x, samples=SAMPLES,
                            presampled=k_tree, up_to=cut)
-            b = mc_predict(model, state, x, samples=SAMPLES,
-                           presampled=p_tree, up_to=cut)
+            with conv_route(lambda _real, *args, **kw:
+                            ic.int_conv_merged_plain(*args, **kw)):
+                b = mc_predict(model, state, x, samples=SAMPLES,
+                               presampled=p_tree, up_to=cut)
             if cut is None:
                 d = float((a - b).abs().max())
                 check(d == 0.0, f"probabilities differ by {d}")
             else:
                 _same_codes(a, b, f"cut {cut}")
             print(f"kernel path == plain path at cut {cut or 'probs'}")
+            del a, b
+        del k_tree, p_tree
+        torch.cuda.empty_cache()
 
         # the card against the CPU path (held against qbn_tpu by the
         # CPU tests) on a small input: B=4, S=4
@@ -464,8 +607,9 @@ def phase_main(seed, state, model, plan, dev):
             else:
                 a.codes = a.codes.cpu()
                 _same_codes(a, b, f"card vs CPU at {cut}")
-        print("card == CPU path (small input) at every cut")
-    return launches
+        print("card (kernels) == CPU (plain versions), small input, at "
+              "every cut")
+    return launches, conv_launches
 
 
 def phase_profile(model, state, seed, dev):
@@ -515,6 +659,82 @@ def phase_times(state, plan, samples, seed):
           f"{bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f} ms, ops "
           f"{ops_ms:.4f} ms)")
     return ms, plain_ms, bound_ms, bound_by
+
+
+def _rows_read(hw, k, stride, ho):
+    """How many of an input's hw rows (or columns) a conv reads: all of them
+    unless the kernel is narrower than its stride (the 1x1/2 shortcuts read
+    every second row)."""
+    pad = k // 2
+    return len({o * stride + i - pad for o in range(ho) for i in range(k)}
+               & set(range(hw)))
+
+
+def phase_conv_times(seed):
+    """The conv kernel at each of the net's conv shapes (B=256, S=100)
+    against its plain version and against the float64 cuDNN conv alone
+    (the sums of the port's conv before this kernel), in turns; its bound
+    per shape. Returns per-batch (ms, plain_ms, bound_ms, bound_by): each
+    shape's time times its convs per batch, summed."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 51)
+    tot = dict(ms=0.0, plain=0.0, f64=0.0, bytes=0, ops=0)
+    for shape in CONV_SHAPES:
+        name, cin, cout, k, stride, hw, shared, n = shape
+        x, w, bias = _conv_inputs(BATCH, SAMPLES, shape, g, dev)
+        st, pads = (stride, stride), [(k // 2, k // 2)] * 2
+        a = (x, _f32(0.0794982761, dev), w, _f32(0.00115220679, dev),
+             _i32(-6, dev), bias, _f32(0.1874899715, dev), _i32(67, dev), st,
+             pads, 0, 127, True, shared)
+        w_oihw = w.float().permute(0, 4, 3, 1, 2).reshape(
+            SAMPLES * cout, cin, k, k)
+        groups = 1 if shared else SAMPLES
+
+        def kernel():
+            ic.int_conv_merged(*a)
+
+        def plain():
+            ic.int_conv_merged_plain(*a)
+
+        def f64():
+            ic.conv_sum(x, w_oihw, st, k // 2, groups)
+
+        t = [cuda_ms(f, iters=i, warmup=1) for f, i in (
+            (plain, 3), (f64, 3), (kernel, 20), (kernel, 20), (f64, 3),
+            (plain, 3))]
+        ms, plain_ms, f64_ms = (t[2] + t[3]) / 2, (t[0] + t[5]) / 2, \
+            (t[1] + t[4]) / 2
+        ho = (hw + 2 * (k // 2) - k) // stride + 1
+        read = _rows_read(hw, k, stride, ho)
+        nbytes = (x.numel() // (hw * hw) * read * read + w.numel()
+                  + BATCH * ho * ho * SAMPLES * cout + 4 * cout)
+        ops = 2 * BATCH * ho * ho * SAMPLES * k * k * cin * cout
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / INT8_OPS_PER_S
+        print(f"int_conv {name} x{n}/batch: kernel {t[2]:.4f}/{t[3]:.4f} ms, "
+              f"plain {t[0]:.3f}/{t[5]:.3f} ms, float64 cuDNN conv alone "
+              f"{t[1]:.3f}/{t[4]:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} "
+              f"ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
+              f"({nbytes} bytes {bytes_ms:.4f} ms, {ops} operations "
+              f"{ops_ms:.4f} ms), kernel at {max(bytes_ms, ops_ms) / ms:.1%}"
+              " of its bound", flush=True)
+        tot["ms"] += n * ms
+        tot["plain"] += n * plain_ms
+        tot["f64"] += n * f64_ms
+        tot["bytes"] += n * nbytes
+        tot["ops"] += n * ops
+        del x, w, w_oihw, a
+        torch.cuda.empty_cache()
+    bytes_ms = 1e3 * tot["bytes"] / HBM_BYTES_PER_S
+    ops_ms = 1e3 * tot["ops"] / INT8_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"int_conv per batch ({CONVS_PER_BATCH} convs): kernel "
+          f"{tot['ms']:.3f} ms, plain {tot['plain']:.1f} ms, float64 cuDNN "
+          f"convs alone {tot['f64']:.1f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({tot['bytes']} bytes {bytes_ms:.4f} ms, {tot['ops']}"
+          f" operations {ops_ms:.4f} ms)")
+    return tot["ms"], tot["plain"], bound_ms, bound_by
 
 
 def dense_bound(x, w, sp, eps):
@@ -910,23 +1130,25 @@ def main(argv=None) -> int:
               f"count {torch.cuda.device_count()}")
     with Phase("build"):
         t0 = time.perf_counter()
-        libs = _build.build_all(["sample_weights", "bbb_dense"], force=True)
+        libs = _build.build_all(["sample_weights", "bbb_dense", "int_conv"],
+                                force=True)
         for name, lib in libs.items():
             print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
                   f"{os.path.relpath(lib, ROOT)}")
             print(_build.BUILD_LOGS[name].strip())
-        print(f"both built in {time.perf_counter() - t0:.2f} s")
+        print(f"all built in {time.perf_counter() - t0:.2f} s")
     with Phase("load"):
         cfg, model, state = load_trained(EXP, device="cuda")
         plan = presample_plan(state)
         check(len(plan) == 21, f"{len(plan)} stochastic layers")
     with Phase("kernel"):
         max_err = phase_kernel(state, plan, SAMPLES, args.seed, dev)
-    with Phase("conv"):
-        phase_conv(BATCH, SAMPLES, args.seed, dev)
+    with Phase("int_conv"):
+        conv_err = phase_int_conv(BATCH, SAMPLES, args.seed, dev)
         torch.cuda.empty_cache()
     with Phase("main"):
-        launches = phase_main(args.seed, state, model, plan, dev)
+        launches, conv_launches = phase_main(args.seed, state, model, plan,
+                                             dev)
         torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(model, state, args.seed, dev)
@@ -940,6 +1162,7 @@ def main(argv=None) -> int:
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
         d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
+        c_ms, c_plain, c_bound, c_by = phase_conv_times(args.seed)
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
@@ -950,7 +1173,11 @@ def main(argv=None) -> int:
         "name": "bbb_dense", "route": "cuda", "source": DENSE_SOURCE,
         "replaces": DENSE_REPLACES, "launches": dense_launches,
         "max_abs_err": dense_err, "ms": d_ms, "plain_ms": d_plain,
-        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}]}))
+        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}, {
+        "name": "int_conv", "route": "cuda", "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES, "launches": conv_launches,
+        "max_abs_err": conv_err, "ms": c_ms, "plain_ms": c_plain,
+        "bound_ms": c_bound, "bound_by": c_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -31,19 +31,23 @@ from qbn_tpu_torch.utils import init_variables, resolve_device
 
 
 def fit(cfg: Config, train_batches, valid_batches=None, device="cuda",
-        generator: Optional[torch.Generator] = None):
+        generator: Optional[torch.Generator] = None,
+        dataset_size: Optional[int] = None):
     """Train one model in float mode; returns (model, trainer, state).
 
     generator: the source of the training noise (by default a generator
     on `device` seeded with cfg.seed + 1). The init always comes from a
     CPU generator seeded with cfg.seed, so a seed gives the same initial
-    weights on every device. 'whole' loss scaling multiplies by the
-    examples in train_batches, the dataset size."""
+    weights on every device. dataset_size: the number of examples before
+    the valid split (qbn_tpu's loaders carry it as `dataset_size`), the
+    n_points of 'whole' loss scaling; without it, the examples in
+    train_batches."""
     device = resolve_device(device)
     train_batches = list(train_batches)
     if valid_batches is not None:
         valid_batches = list(valid_batches)
-    n_points = sum(len(y) for _x, y in train_batches)
+    n_points = (dataset_size if dataset_size is not None
+                else sum(len(y) for _x, y in train_batches))
     model = build_model(cfg)
     variables = init_variables(
         model, torch.Generator().manual_seed(cfg.seed), cfg.input_size,

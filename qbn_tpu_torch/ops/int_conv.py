@@ -1,0 +1,418 @@
+"""All-samples int8 convolution with the requant epilogue (port of
+qbn_tpu/ops/pallas/conv_gemm.py and qbn_tpu/ops/pallas/bconv.py, computing
+the function of qbn_tpu/ops/integer.py int_conv_merged).
+
+Activations travel as codes u = q - zp (int8), so dequant(u) = u * scale
+and conv zero padding is padding with the zero point. Only the weight zero
+point zw needs a correction:
+    conv:  u * (w - zw) = conv(u, w) - zw * winsum(u)
+qbn_tpu picks one of two formulations by contraction depth K, and the
+port keeps both, with the same float32 epilogue, so that the int8 codes
+are bitwise equal:
+  * K <= 520: the weights are centered, (w - zw), and the correction
+    vanishes; acc_f = acc * (sx * sw);
+  * K > 520: acc and the window sum are taken apart and
+    acc_f = (f32(acc) - zw * f32(winsum)) * (sx * sw).
+Requantisation then runs in qbn_tpu's order: + bias, / out_scale, round
+half to even, + out_zp, clip to 0..255, quantised ReLU (max with out_zp),
+the sub-8-bit clip, - out_zp.
+
+On a CUDA tensor `int_conv_merged`, `mc_group_conv` and `int_conv_sums`
+launch the hand-written kernel of `csrc/int_conv.cu` (an int8 implicit
+GEMM on the tensor cores with exact int32 sums) or raise; there is no
+fallback. On a CPU tensor they run the plain versions beside them, whose
+integer sums come from library convolutions in float64, which holds them
+exactly (for some float32 3x3 shapes cuDNN picks an algorithm that is not
+exact on integers: the stage-1 48->48 conv at B=256, S=100 came out 0.125
+off on an H100).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from qbn_tpu_torch.ops import _build
+
+_CENTERED_K = (1 << 24) // (254 * 127)           # 520
+_MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
+_BM = 128                                        # output pixels per CTA
+
+# Kernel launches since the count was last set to 0; chip_smoke.py reads
+# it to show that the main path went through the kernel.
+launches = 0
+
+
+# -- the plain versions ---------------------------------------------------
+
+def conv_sum(x, w, stride, padding: int, groups: int):
+    """Exact integer conv sums in NHWC, in float64.
+
+    x: (B, H, W, C) integer-valued codes; w: (O, C/groups, kh, kw)
+    integer-valued weights. Returns (B, H', W', O) float64."""
+    xn = x.to(torch.float64).permute(0, 3, 1, 2)          # NCHW view
+    y = F.conv2d(xn, w.to(torch.float64), stride=stride, padding=padding,
+                 groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def requant_out(acc_f, bias, out_scale, out_zp, relu, a_lo, a_hi):
+    """Float-requantise an accumulator to zero-point-removed int8 codes.
+
+    out_scale / out_zp are 0-d tensors on the accumulator's device: a CPU
+    scalar divisor would make PyTorch multiply by its reciprocal."""
+    y = acc_f
+    if bias is not None:
+        y = y + bias
+    zp = out_zp.to(torch.float32)
+    q = torch.round(y / out_scale) + zp
+    q = torch.clamp(q, 0, 255)
+    if relu:
+        q = torch.maximum(q, zp)            # quantised ReLU: max(code, zp)
+    q = torch.clamp(q, a_lo, a_hi)
+    return (q - zp).to(torch.int8)
+
+
+def _padding(padding) -> int:
+    (p0, p1), (p2, p3) = padding
+    if not p0 == p1 == p2 == p3:
+        raise ValueError(f"only symmetric padding is supported: {padding}")
+    return int(p0)
+
+
+def _weights_oihw(w_codes):
+    """(S, kh, kw, cin, cout) -> (S*cout, cin, kh, kw) float32: group g =
+    sample g."""
+    s, kh, kw, cin, cout = w_codes.shape
+    return w_codes.to(torch.float32).permute(0, 4, 3, 1, 2).reshape(
+        s * cout, cin, kh, kw)
+
+
+def int_conv_sums_plain(x_codes, w_codes, strides, padding,
+                        shared_x: bool = False):
+    """The raw sums of `int_conv_sums`, from float64 library convs."""
+    s, kh, kw, cin, cout = w_codes.shape
+    pad, groups = _padding(padding), 1 if shared_x else s
+    acc = conv_sum(x_codes, _weights_oihw(w_codes), strides, pad, groups)
+    ones = torch.ones((1 if shared_x else s, cin, kh, kw),
+                      device=x_codes.device)
+    win = conv_sum(x_codes, ones, strides, pad, groups)
+    b, ho, wo = acc.shape[:3]
+    acc = acc.reshape(b, ho, wo, s, cout).to(torch.int32)
+    win = win.to(torch.int32).expand(b, ho, wo, s) if shared_x else \
+        win.to(torch.int32)
+    return acc, win.contiguous()
+
+
+def int_conv_merged_plain(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
+                          out_scale, out_zp, strides, padding,
+                          a_lo: int, a_hi: int, relu: bool = False,
+                          shared_x: bool = False, residual=None,
+                          res_scale=None, res_out_scale=None,
+                          res_out_zp=None, res_relu: bool = False):
+    """`int_conv_merged` in plain PyTorch: float64 library convs for the
+    sums, the float32 epilogue as elementwise passes."""
+    s, kh, kw, cin, cout = w_codes.shape
+    k = kh * kw * cin
+    groups = 1 if shared_x else s
+    pad = _padding(padding)
+    f32 = torch.float32
+    w = _weights_oihw(w_codes)
+    scale = x_scale * w_scale
+    if k <= _CENTERED_K:
+        acc = conv_sum(x_codes, w - w_zp.to(f32), strides, pad, groups)
+        acc_f = acc.to(f32) * scale
+    else:
+        acc = conv_sum(x_codes, w, strides, pad, groups)
+        n_ws = 1 if shared_x else s
+        ones = torch.ones((n_ws, cin, kh, kw), dtype=f32,
+                          device=x_codes.device)
+        winsum = conv_sum(x_codes, ones, strides, pad, groups)
+        b, ho, wo = acc.shape[:3]
+        corr = w_zp.to(f32) * winsum.to(f32)                # (B,H',W',n_ws)
+        acc_f = (acc.to(f32).reshape(b, ho, wo, s, cout) - corr[..., None]
+                 ) * scale
+    b, ho, wo = acc_f.shape[:3]
+    acc_f = acc_f.reshape(b, ho, wo, s, cout)
+    out = requant_out(acc_f, bias, out_scale, out_zp, relu, a_lo, a_hi)
+    if residual is not None:
+        res = residual.reshape(b, ho, wo, s, cout)
+        y = out.to(f32) * out_scale + res.to(f32) * res_scale
+        out = requant_out(y, None, res_out_scale, res_out_zp, res_relu,
+                          a_lo, a_hi)
+    return out.reshape(b, ho, wo, s * cout)
+
+
+# -- qparams and checks ---------------------------------------------------
+
+def _scale(v, dev, name):
+    t = torch.as_tensor(v, device=dev)
+    if t.numel() != 1:
+        raise ValueError(f"{name} must be a scalar: {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        if isinstance(v, torch.Tensor):
+            raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
+        t = t.to(torch.float32)
+    return t.reshape(())
+
+
+def _zero_point(v, dev, name):
+    """A zero point as a 0-d int32 tensor. The kernel's centered branch
+    subtracts zw * winsum in integers, so zw must be integer-valued."""
+    t = torch.as_tensor(v, device=dev)
+    if t.numel() != 1:
+        raise ValueError(f"{name} must be a scalar: {tuple(t.shape)}")
+    if t.dtype.is_floating_point:
+        if not bool(t == torch.round(t)):
+            raise ValueError(f"{name} = {float(t)} is not integer-valued")
+    return t.to(torch.int32).reshape(())
+
+
+def _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp, res_scale=None,
+             res_out_scale=None, res_out_zp=None):
+    q = dict(x_scale=_scale(x_scale, dev, "x_scale"),
+             w_scale=_scale(w_scale, dev, "w_scale"),
+             w_zp=_zero_point(w_zp, dev, "w_zp"),
+             out_scale=_scale(out_scale, dev, "out_scale"),
+             out_zp=_zero_point(out_zp, dev, "out_zp"))
+    if res_scale is not None:
+        q.update(res_scale=_scale(res_scale, dev, "res_scale"),
+                 res_out_scale=_scale(res_out_scale, dev, "res_out_scale"),
+                 res_out_zp=_zero_point(res_out_zp, dev, "res_out_zp"))
+    return q
+
+
+def _check(t: torch.Tensor, dtype, name: str, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _out_hw(h, w, kh, kw, stride, pad):
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError("the convolution has no output pixel")
+    return ho, wo
+
+
+def _strides(strides) -> int:
+    sh, sw = strides
+    if sh != sw:
+        raise ValueError(f"only equal strides are supported: {strides}")
+    return int(sh)
+
+
+# -- the kernel -----------------------------------------------------------
+
+_FIELDS = (
+    "x", "x_sb", "x_sh", "x_sw", "x_ss", "B", "H", "W", "cin",
+    "w", "S", "kh", "kw", "cout", "stride", "pad", "Ho", "Wo",
+    "out", "o_sb", "o_sh", "o_sw", "o_ss", "res", "bias",
+    "x_scale", "w_scale", "w_zp", "out_scale", "out_zp",
+    "res_scale", "res_out_scale", "res_out_zp",
+    "relu", "res_relu", "a_lo", "a_hi", "raw_acc", "raw_win",
+    "vec_x", "vec_out")
+_PTRS = frozenset((
+    "x", "w", "out", "res", "bias", "x_scale", "w_scale", "w_zp",
+    "out_scale", "out_zp", "res_scale", "res_out_scale", "res_out_zp",
+    "raw_acc", "raw_win"))
+
+
+class _Args(ctypes.Structure):
+    """QbnConvArgs of csrc/int_conv.cu, field for field: every field 64
+    bits wide, so the two layouts agree without padding."""
+    _fields_ = [(n, ctypes.c_void_p if n in _PTRS else ctypes.c_longlong)
+                for n in _FIELDS]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("int_conv")
+    size = lib.qbn_int_conv_args_size
+    size.argtypes, size.restype = [], ctypes.c_int
+    if size() != ctypes.sizeof(_Args):
+        raise RuntimeError("csrc/int_conv.cu's QbnConvArgs and _Args differ")
+    fn = lib.qbn_int_conv
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
+            out_strides, q=None, bias=None, residual=None, relu=False,
+            res_relu=False, a_lo=0, a_hi=127, raw=None):
+    """One launch of the kernel. x_strides / out_strides: element strides
+    of (b, h, w, sample); x_shape (B, H, W, cin); out_shape (Ho, Wo);
+    raw: (acc, winsum) int32 buffers for the debug entry."""
+    global launches
+    b, h, wd, cin = x_shape
+    s, kh, kw, _cin, cout = w.shape
+    ho, wo = out_shape
+    k = kh * kw * cin
+    if k > _MAX_K:
+        raise ValueError(f"K = {k} would overflow the int32 sums")
+    if -(-b * ho * wo // _BM) > 65535:
+        raise ValueError(f"{b * ho * wo} output pixels per sample exceed the "
+                         f"kernel's grid ({65535 * _BM})")
+    # 4-byte loads and stores where every run starts on a 4-byte boundary
+    vec_x = (cin % 4 == 0 and all(v % 4 == 0 for v in x_strides)
+             and x.data_ptr() % 4 == 0)
+    vec_out = (raw is None and cout % 4 == 0
+               and all(v % 4 == 0 for v in out_strides)
+               and all(t is None or t.data_ptr() % 4 == 0
+                       for t in (out, residual)))
+    q = q or {}
+    args = _Args(
+        x=x.data_ptr(), x_sb=x_strides[0], x_sh=x_strides[1],
+        x_sw=x_strides[2], x_ss=x_strides[3], B=b, H=h, W=wd, cin=cin,
+        w=w.data_ptr(), S=s, kh=kh, kw=kw, cout=cout, stride=stride, pad=pad,
+        Ho=ho, Wo=wo, out=_ptr(out), o_sb=out_strides[0],
+        o_sh=out_strides[1], o_sw=out_strides[2], o_ss=out_strides[3],
+        res=_ptr(residual), bias=_ptr(bias),
+        **{n: _ptr(q.get(n)) for n in (
+            "x_scale", "w_scale", "w_zp", "out_scale", "out_zp", "res_scale",
+            "res_out_scale", "res_out_zp")},
+        relu=int(relu), res_relu=int(res_relu), a_lo=int(a_lo),
+        a_hi=int(a_hi), raw_acc=_ptr(raw[0]) if raw else None,
+        raw_win=_ptr(raw[1]) if raw else None, vec_x=int(vec_x),
+        vec_out=int(vec_out))
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"qbn_int_conv launch failed: cudaError {err}")
+    launches += 1
+
+
+def _merged_geometry(x_codes, w_codes, strides, padding, shared_x):
+    """Checks the merged-layout operands of a CUDA call; returns
+    (stride, pad, (B, H, W, cin), x element strides, (Ho, Wo))."""
+    dev = x_codes.device
+    if w_codes.ndim != 5:
+        raise ValueError("w_codes must be (S, kh, kw, cin, cout)")
+    s, kh, kw, cin, cout = w_codes.shape
+    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
+    if x_codes.ndim != 4:
+        raise ValueError("x_codes must be (B, H, W, C)")
+    b, h, wd = x_codes.shape[:3]
+    _check(x_codes, torch.int8, "x_codes",
+           (b, h, wd, cin if shared_x else s * cin), dev)
+    stride, pad = _strides(strides), _padding(padding)
+    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
+    c = x_codes.shape[3]
+    x_strides = (h * wd * c, wd * c, c, 0 if shared_x else cin)
+    return stride, pad, (b, h, wd, cin), x_strides, (ho, wo)
+
+
+def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
+                    out_scale, out_zp, strides, padding,
+                    a_lo: int, a_hi: int, relu: bool = False,
+                    shared_x: bool = False, residual=None,
+                    res_scale=None, res_out_scale=None, res_out_zp=None,
+                    res_relu: bool = False):
+    """All-samples quantised conv in the MERGED channel layout.
+
+    x_codes: (B, H, W, S*cin) int8 codes, sample-major channel groups, or
+      (B, H, W, cin) when shared_x (the stem: one image, S weights).
+    w_codes: (S, kh, kw, cin, cout) int8 per-sample weight codes.
+    strides: (sh, sw); padding: ((p, p), (p, p)).
+    residual (optional): (B, H', W', S*cout) int8 codes at scale
+      res_scale; the quantised add (dequant both, add, requant to
+      res_out_scale/zp, optional ReLU) then follows the conv's requant.
+    Returns (B, H', W', S*cout) int8 codes.
+    """
+    dev = x_codes.device
+    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp,
+                 *((res_scale, res_out_scale, res_out_zp)
+                   if residual is not None else ()))
+    if dev.type == "cpu":
+        return int_conv_merged_plain(
+            x_codes, q["x_scale"], w_codes, q["w_scale"], q["w_zp"], bias,
+            q["out_scale"], q["out_zp"], strides, padding, a_lo, a_hi, relu,
+            shared_x, residual, q.get("res_scale"), q.get("res_out_scale"),
+            q.get("res_out_zp"), res_relu)
+
+    stride, pad, x_shape, x_strides, (ho, wo) = _merged_geometry(
+        x_codes, w_codes, strides, padding, shared_x)
+    s, cout = w_codes.shape[0], w_codes.shape[4]
+    b = x_shape[0]
+    if bias is not None:
+        _check(bias, torch.float32, "bias", (cout,), dev)
+    if residual is not None:
+        _check(residual, torch.int8, "residual", (b, ho, wo, s * cout), dev)
+    out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
+    _launch(x_codes, x_strides, x_shape, w_codes, stride, pad, (ho, wo), out,
+            (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
+            residual, relu, res_relu, a_lo, a_hi)
+    return out
+
+
+def mc_group_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
+                  out_scale, out_zp, a_lo: int, a_hi: int,
+                  relu: bool = False, strides=(1, 1), padding=None):
+    """Per-sample int8 conv in K3's layout: (S, B, H, W, cin) x
+    (S, kh, kw, cin, cout) -> (S, B, H', W', cout) int8 codes, with
+    int_conv_merged's epilogue. padding defaults to kh // 2 on each side
+    (qbn_tpu's mc_group_conv is the 3x3, stride-1, pad-1 case)."""
+    s, kh, kw, cin, cout = w_codes.shape
+    if padding is None:
+        padding = ((kh // 2, kh // 2), (kh // 2, kh // 2))
+    dev = x_codes.device
+    if x_codes.ndim != 5 or x_codes.shape[0] != s:
+        raise ValueError("x_codes must be (S, B, H, W, cin)")
+    _s, b, h, wd, _c = x_codes.shape
+    if dev.type == "cpu":
+        xm = x_codes.permute(1, 2, 3, 0, 4).reshape(b, h, wd, s * cin)
+        out = int_conv_merged(xm, x_scale, w_codes, w_scale, w_zp, bias,
+                              out_scale, out_zp, strides, padding, a_lo, a_hi,
+                              relu)
+        ho, wo = out.shape[1:3]
+        return out.reshape(b, ho, wo, s, cout).permute(3, 0, 1, 2, 4) \
+            .contiguous()
+
+    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
+    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
+    _check(x_codes, torch.int8, "x_codes", (s, b, h, wd, cin), dev)
+    if bias is not None:
+        _check(bias, torch.float32, "bias", (cout,), dev)
+    stride, pad = _strides(strides), _padding(padding)
+    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
+    out = torch.empty((s, b, ho, wo, cout), dtype=torch.int8, device=dev)
+    _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
+            (b, h, wd, cin), w_codes, stride, pad, (ho, wo), out,
+            (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
+            None, relu, False, a_lo, a_hi)
+    return out
+
+
+def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False):
+    """The raw sums that int_conv_merged's epilogue starts from, for
+    checking: (acc (B, H', W', S, cout), winsum (B, H', W', S)) int32, acc
+    the conv of the codes with the weight codes (no zero point), winsum the
+    window sum of each sample's activations."""
+    if x_codes.device.type == "cpu":
+        return int_conv_sums_plain(x_codes, w_codes, strides, padding,
+                                   shared_x)
+    stride, pad, x_shape, x_strides, (ho, wo) = _merged_geometry(
+        x_codes, w_codes, strides, padding, shared_x)
+    b, s, cout = x_shape[0], w_codes.shape[0], w_codes.shape[4]
+    dev = x_codes.device
+    acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
+    win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
+    _launch(x_codes, x_strides, x_shape, w_codes, stride, pad, (ho, wo), None,
+            (0, 0, 0, 0), raw=(acc, win))
+    return acc, win

@@ -23,6 +23,7 @@ from typing import Iterable, Optional
 import torch
 
 from qbn_tpu_torch.config import Config
+from qbn_tpu_torch.ops.stochastic import GeneratorNoise
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.training.losses import classification_loss
 from qbn_tpu_torch.training.optim import tree_map
@@ -131,15 +132,23 @@ class Trainer:
         out.update({k: float(v) for k, v in logs.items()})
         return state, out
 
-    def eval_epoch(self, state: TrainState, batches: Iterable):
+    def eval_epoch(self, state: TrainState, batches: Iterable,
+                   seed: int = 0):
         """Validation metrics: eval-mode forwards (one weight sample per
-        batch), no gradient."""
+        batch), no gradient. The weight samples come from the pass's own
+        generator, seeded from cfg.seed + 17 with `seed` (the epoch)
+        folded in, as qbn_tpu keys its eval (PRNGKey(cfg.seed + 17),
+        fold_in seed * 100003): never from the training noise, so the
+        training trajectory does not depend on whether validation runs."""
         metric_state = M.cls_metrics_init(device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.cfg.seed + 17) * 1_000_003 + seed * 100_003)
+        noise = GeneratorNoise(gen)
         with torch.no_grad(), full_float32():
             for x, y in batches:
                 x, y = self._tensors(x, y)
                 out = self.model(x, self.variables(state), train=False,
-                                 mode=self.mode, noise=self.noise)
+                                 mode=self.mode, noise=noise)
                 metric_state = M.cls_metrics_update(metric_state, out, y)
         return {k: float(v) for k, v in M.cls_metrics_compute(
             metric_state).items()}
@@ -153,6 +162,7 @@ class Trainer:
             state, train_m = self.train_epoch(state, train_batches)
             row = {"epoch": epoch, "train": train_m}
             if valid_batches is not None:
-                row["valid"] = self.eval_epoch(state, valid_batches)
+                row["valid"] = self.eval_epoch(state, valid_batches,
+                                               seed=epoch)
             self.history.append(row)
         return state
