@@ -21,23 +21,27 @@ its seconds:
               own Philox normals, code histograms against the plain version
               fed torch.randn, and the moments of 10^7 of its normals
   4. int_conv the int8 conv kernel against its plain version at every conv
-              shape of the net at B=256, S=100, bitwise: its raw int32
-              sums (equal to float64 convs, and to int64 window sums at
-              sampled outputs), its codes with relu off and on, a_hi 127,
-              63 and 3, the residual epilogue, the per-sample layout, and
-              K=1728 codes at the int8 edges (sums past 2^24)
+              shape of the net at B=256, S=100, bitwise, on the body the
+              shape's plan takes (printed) and, at the 3x3 shapes, again
+              on the im2col body: its raw int32 sums (equal to
+              float64 convs, and to int64 window sums at sampled
+              outputs), its codes with relu off and on, a_hi 127, 63 and
+              3, the residual epilogue, the per-sample layout, and K=1728
+              codes at the int8 edges (sums past 2^24)
   5. main     `evaluate` on the checkpoint (read by the port's own reader),
               the draw kernel's launches (1 per batch) and the conv
-              kernel's (20 per batch), the kernel path against the plain
+              kernel's (20 per batch: 16 on the halo body, 4 on the
+              im2col body), the kernel path against the plain
               path with the same explicit noise (each of a forward's 20
               convs against its plain version on the recorded inputs, and
               identical int8 codes at every up_to cut), and the card
               against the CPU path on a small input
   6. profile  one batch under torch.profiler: device time by kernel and
               the device's idle share
-  7. bbb_dense the local-reparametrisation dense kernel against its plain
-              version and a float64 product at LeNet's fc_0 and fc_1 and at
-              a ragged shape, its hand-written backward against autograd,
+  7. bbb_dense the local-reparametrisation dense kernel (3xTF32) against
+              its plain version and the float32 dot-product bound of a
+              float64 product at LeNet's fc_0 and fc_1 and at a ragged
+              shape, its hand-written backward against autograd,
               and the moments and lag-1 correlations of 10^7 of its own
               (seed-mode) normals
   8. train    `flows.fit` of the BBB LeNet with tpu_fused=True: B=256,
@@ -46,10 +50,11 @@ its seconds:
               with the same params and noise, the card against the CPU at
               B=8, and ms per steady step
   9. train_profile one training step under torch.profiler
- 10. times    each kernel against its plain version and its bound (the
-              dense kernel also against two cuBLAS products + epilogue,
-              the conv kernel, per shape and per batch, also against the
-              float64 cuDNN conv alone)
+ 10. times    each kernel against its plain version and its bound, in
+              turns (the dense kernel also against two cuBLAS products +
+              epilogue; the conv kernel, per shape and per batch, also
+              against the float64 cuDNN conv alone and, at the 3x3
+              shapes, the im2col body)
 
 Any failed check raises and the run exits non-zero. The last lines are a
 `{"kernels": [...]}` JSON object and `{"ok": true, "device": {...}}`.
@@ -116,6 +121,7 @@ DENSE_SHAPES = [("fc_0", 256, 2450, 500), ("fc_1", 256, 500, 10),
 # full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 494.7e12     # dense TF32 tensor-core operations/s
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core operations/s
 # fp32 operations per drawn code: the quantise chain of draw_code in the
 # kernel (26: two dequants, the noise quantise, the quantised multiply and
@@ -318,6 +324,9 @@ CONV_SHAPES = [
     ("stage3 3x3", 192, 192, 3, 1, 4, False, 3),
 ]
 CONVS_PER_BATCH = sum(c[-1] for c in CONV_SHAPES)          # 20
+# the block 3x3 convs, which take the kernel's halo body
+HALO_PER_BATCH = sum(c[-1] for c in CONV_SHAPES
+                     if c[3] == 3 and not c[6])                 # 16
 
 
 def _conv_inputs(batch, samples, shape, g, dev):
@@ -379,6 +388,22 @@ def _codes_err(a, b, what):
     return err
 
 
+def describe_plan(plan):
+    """One line for the design a conv shape takes, and why."""
+    if plan.design != "halo":
+        return (f"design im2col ({plan.reason}): {plan.bm} pixels x "
+                f"{plan.bn} channels per CTA")
+    tile = (f"{plan.rows} output rows" if plan.n_img == 1 else
+            f"{plan.n_img} whole images")
+    ring = ("all of K in one chunk" if plan.ring == 1 else
+            f"chunks of {plan.kc} k rows, {plan.ring} in the ring")
+    return (f"design halo ({plan.reason}): {plan.bm} pixels ({tile}) x "
+            f"{plan.bn} channels per CTA, warps {8 // plan.wn}x{plan.wn}, "
+            f"halo tile {plan.n_img}x{plan.h_in}x{plan.w_in} pixels of "
+            f"{plan.pitch} bytes in {plan.vx}-byte copies, weights {ring}, "
+            f"{plan.smem_bytes} bytes of shared memory")
+
+
 def phase_int_conv(batch, samples, seed, dev):
     """The conv kernel against its plain version at every conv shape of the
     net, bitwise: raw int32 sums (and int64 window sums at sampled
@@ -391,52 +416,64 @@ def phase_int_conv(batch, samples, seed, dev):
         name, cin, cout, k, stride, hw, shared, _n = shape
         x, w, bias = _conv_inputs(batch, samples, shape, g, dev)
         st, pads = (stride, stride), [(k // 2, k // 2)] * 2
-        acc, win = ic.int_conv_sums(x, w, st, pads, shared)
+        plan = ic.merged_plan(x, w, st, pads, shared)
+        print(f"int_conv {name}: {describe_plan(plan)}", flush=True)
         p_acc, p_win = ic.int_conv_sums_plain(x, w, st, pads, shared)
-        check(torch.equal(acc, p_acc) and torch.equal(win, p_win),
-              f"{name}: raw sums differ from the float64 convs")
-        _spot_check(x, w, stride, k // 2, shared, acc, win, seed=seed)
         x_scale, w_scale, w_zp = (_f32(0.0794982761, dev),
                                   _f32(0.00115220679, dev), _i32(-6, dev))
-        uniq = []
-        for relu, a_hi in ((False, 127), (True, 127), (True, 63), (True, 3)):
-            os_, oz = _out_qparams(acc, win, x_scale, w_scale, w_zp, a_hi)
-            a = (x, x_scale, w, w_scale, w_zp, bias, os_, oz, st, pads, 0,
-                 a_hi, relu, shared)
-            got = ic.int_conv_merged(*a)
-            want = ic.int_conv_merged_plain(*a)
-            max_err = max(max_err, _codes_err(
-                got, want, f"{name} relu={relu} a_hi={a_hi}"))
-            uniq.append(len(torch.unique(got)))
-            if relu and a_hi == 127 and not shared:
-                # the per-sample layout (K3's entry): (S, B, H, W, cin)
-                xs = x.reshape(batch, hw, hw, samples, cin).permute(
-                    3, 0, 1, 2, 4).contiguous()
-                per = ic.mc_group_conv(xs, x_scale, w, w_scale, w_zp, bias,
-                                       os_, oz, 0, a_hi, relu, st, pads)
-                del xs
+        qps = [(relu, a_hi, *_out_qparams(p_acc, p_win, x_scale, w_scale,
+                                          w_zp, a_hi))
+               for relu, a_hi in ((False, 127), (True, 127), (True, 63),
+                                  (True, 3))]
+        res = torch.randint(-60, 60, (batch, hw // stride, hw // stride,
+                                      samples * cout), generator=g,
+                            device=dev, dtype=torch.int8)
+        # every check on the shape's design and, where that is the halo
+        # body, again on the im2col body
+        for design in dict.fromkeys((plan.design, "im2col")):
+            acc, win = ic.int_conv_sums(x, w, st, pads, shared,
+                                        _design=design)
+            check(torch.equal(acc, p_acc) and torch.equal(win, p_win),
+                  f"{name} ({design}): raw sums differ from the float64 "
+                  "convs")
+            _spot_check(x, w, stride, k // 2, shared, acc, win, seed=seed)
+            del acc, win
+            uniq = []
+            for relu, a_hi, os_, oz in qps:
+                a = (x, x_scale, w, w_scale, w_zp, bias, os_, oz, st, pads,
+                     0, a_hi, relu, shared)
+                got = ic.int_conv_merged(*a, _design=design)
+                want = ic.int_conv_merged_plain(*a)
                 max_err = max(max_err, _codes_err(
-                    per.permute(1, 2, 3, 0, 4).reshape(want.shape), want,
-                    f"{name} per-sample layout"))
-                del per
-                # the residual epilogue on the relu=True output's grid
-                res = torch.randint(-60, 60, want.shape, generator=g,
-                                    device=dev, dtype=torch.int8)
-                rq = dict(residual=res, res_scale=_f32(0.105613649, dev),
-                          res_out_scale=_f32(0.124463566, dev),
-                          res_out_zp=_i32(63, dev), res_relu=True)
-                got = ic.int_conv_merged(*a, **rq)
-                want = ic.int_conv_merged_plain(*a, **rq)
-                max_err = max(max_err, _codes_err(got, want,
-                                                  f"{name} residual"))
-                del res
-            del got, want
-        print(f"int_conv {name}: K={k * k * cin} B={batch} S={samples} raw "
-              "sums == float64 convs == int64 windows (64 sampled); codes "
-              f"== plain (relu off/on, a_hi 127/63/3"
-              f"{'' if shared else ', per-sample layout, residual'}); "
-              f"distinct codes {uniq}", flush=True)
-        del x, w, acc, win, p_acc, p_win
+                    got, want, f"{name} ({design}) relu={relu} a_hi={a_hi}"))
+                uniq.append(len(torch.unique(got)))
+                if relu and a_hi == 127 and not shared:
+                    # the per-sample layout (K3's entry): (S, B, H, W, cin)
+                    xs = x.reshape(batch, hw, hw, samples, cin).permute(
+                        3, 0, 1, 2, 4).contiguous()
+                    per = ic.mc_group_conv(xs, x_scale, w, w_scale, w_zp,
+                                           bias, os_, oz, 0, a_hi, relu, st,
+                                           pads, _design=design)
+                    del xs
+                    max_err = max(max_err, _codes_err(
+                        per.permute(1, 2, 3, 0, 4).reshape(want.shape), want,
+                        f"{name} ({design}) per-sample layout"))
+                    del per
+                    # the residual epilogue on the relu=True output's grid
+                    rq = dict(residual=res, res_scale=_f32(0.105613649, dev),
+                              res_out_scale=_f32(0.124463566, dev),
+                              res_out_zp=_i32(63, dev), res_relu=True)
+                    got = ic.int_conv_merged(*a, **rq, _design=design)
+                    want = ic.int_conv_merged_plain(*a, **rq)
+                    max_err = max(max_err, _codes_err(
+                        got, want, f"{name} ({design}) residual"))
+                del got, want
+            more = "" if shared else ", per-sample layout, residual"
+            print(f"int_conv {name} ({design}): K={k * k * cin} B={batch} "
+                  f"S={samples} raw sums == float64 convs == int64 windows "
+                  f"(64 sampled); codes == plain (relu off/on, a_hi "
+                  f"127/63/3{more}); distinct codes {uniq}", flush=True)
+        del x, w, res, p_acc, p_win
         torch.cuda.empty_cache()
 
     # K = 1728 with every code within 2 of the int8 edge: the sums and the
@@ -452,12 +489,18 @@ def phase_int_conv(batch, samples, seed, dev):
         acc, _win = ic.int_conv_sums(x, w, (1, 1), [(1, 1)] * 2)
         big = int(acc.abs().max())
         check(big > 2 ** 24, f"adversarial sums stay below 2^24 ({big})")
-        max_err = max(max_err, _codes_err(ic.int_conv_merged(*a),
-                                          ic.int_conv_merged_plain(*a),
-                                          f"{name} edge codes zw={zw}"))
+        want = ic.int_conv_merged_plain(*a)
+        designs = dict.fromkeys((ic.merged_plan(x, w, (1, 1),
+                                                [(1, 1)] * 2).design,
+                                 "im2col"))
+        for design in designs:
+            max_err = max(max_err, _codes_err(
+                ic.int_conv_merged(*a, _design=design), want,
+                f"{name} ({design}) edge codes zw={zw}"))
         print(f"int_conv {name} edge codes (x sign {x_sign}, w sign "
-              f"{w_sign}, zw {zw}): max |acc| {big} > 2^24, codes == plain")
-        del x, w, acc
+              f"{w_sign}, zw {zw}): max |acc| {big} > 2^24, codes == plain "
+              f"({', '.join(designs)})")
+        del x, w, acc, want
     torch.cuda.empty_cache()
 
     # the dense head: (S, B, 192) x (S, 192, 10), float32 batched product
@@ -505,19 +548,27 @@ def phase_main(seed, state, model, plan, dev):
 
     def batches():
         for x, y in data:
-            seen.append((sw.launches, ic.launches))
+            seen.append((sw.launches, ic.launches,
+                         ic.launches_by_design["halo"]))
             yield x, y
 
     gen = torch.Generator().manual_seed(seed)
     sw.launches = ic.launches = 0
+    ic.launches_by_design.update(halo=0, im2col=0)
     metric_state, probs, seconds = evaluate(model, state, batches(),
                                             SAMPLES, gen, dev)
     launches, conv_launches = sw.launches, ic.launches
-    check(seen == [(i, CONVS_PER_BATCH * i) for i in range(BATCHES)],
-          f"(draw, conv) launches before each batch {seen}")
+    by_design = dict(ic.launches_by_design)
+    check(seen == [(i, CONVS_PER_BATCH * i, HALO_PER_BATCH * i)
+                   for i in range(BATCHES)],
+          f"(draw, conv, halo conv) launches before each batch {seen}")
     check(launches == BATCHES, f"draw launches {launches}")
     check(conv_launches == CONVS_PER_BATCH * BATCHES,
           f"conv launches {conv_launches} in {BATCHES} batches")
+    check(by_design == {"halo": HALO_PER_BATCH * BATCHES,
+                        "im2col": (CONVS_PER_BATCH - HALO_PER_BATCH)
+                        * BATCHES},
+          f"conv launches by design {by_design} in {BATCHES} batches")
     es = BATCH * SAMPLES
     for i, (p, dt) in enumerate(zip(probs, seconds)):
         check(p.shape == (BATCH, 10), f"probs shape {tuple(p.shape)}")
@@ -537,7 +588,7 @@ def phase_main(seed, state, model, plan, dev):
           f"S={SAMPLES}, steady {1e3 * sum(steady) / len(steady):.1f} "
           f"ms/batch, {es * len(steady) / sum(steady):.0f} "
           f"example-samples/s; conv kernel launches {conv_launches} "
-          f"({CONVS_PER_BATCH} per batch)")
+          f"({CONVS_PER_BATCH} per batch; by design {by_design})")
 
     # the same batch with the same explicit noise through the kernel path
     # (draw kernel, conv kernel) and the plain path (plain draw, plain
@@ -678,7 +729,7 @@ def phase_conv_times(seed):
     shape's time times its convs per batch, summed."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 51)
-    tot = dict(ms=0.0, plain=0.0, f64=0.0, bytes=0, ops=0)
+    tot = dict(ms=0.0, im2col=0.0, plain=0.0, f64=0.0, bytes=0, ops=0)
     for shape in CONV_SHAPES:
         name, cin, cout, k, stride, hw, shared, n = shape
         x, w, bias = _conv_inputs(BATCH, SAMPLES, shape, g, dev)
@@ -690,8 +741,13 @@ def phase_conv_times(seed):
             SAMPLES * cout, cin, k, k)
         groups = 1 if shared else SAMPLES
 
+        plan = ic.merged_plan(x, w, st, pads, shared)
+
         def kernel():
             ic.int_conv_merged(*a)
+
+        def im2col():          # the im2col body, forced
+            ic.int_conv_merged(*a, _design="im2col")
 
         def plain():
             ic.int_conv_merged_plain(*a)
@@ -699,11 +755,16 @@ def phase_conv_times(seed):
         def f64():
             ic.conv_sum(x, w_oihw, st, k // 2, groups)
 
-        t = [cuda_ms(f, iters=i, warmup=1) for f, i in (
-            (plain, 3), (f64, 3), (kernel, 20), (kernel, 20), (f64, 3),
-            (plain, 3))]
-        ms, plain_ms, f64_ms = (t[2] + t[3]) / 2, (t[0] + t[5]) / 2, \
-            (t[1] + t[4]) / 2
+        # turns: plain, f64, kernel[, im2col body twice], kernel, f64,
+        # plain
+        both = plan.design == "halo"
+        runs = [(plain, 3), (f64, 3), (kernel, 20)] + (
+            [(im2col, 20), (im2col, 20)] if both else []) + [
+            (kernel, 20), (f64, 3), (plain, 3)]
+        t = [cuda_ms(f, iters=i, warmup=1) for f, i in runs]
+        ms, plain_ms, f64_ms = (t[2] + t[-3]) / 2, (t[0] + t[-1]) / 2, \
+            (t[1] + t[-2]) / 2
+        im2col_ms = (t[3] + t[4]) / 2 if both else ms
         ho = (hw + 2 * (k // 2) - k) // stride + 1
         read = _rows_read(hw, k, stride, ho)
         nbytes = (x.numel() // (hw * hw) * read * read + w.numel()
@@ -711,14 +772,18 @@ def phase_conv_times(seed):
         ops = 2 * BATCH * ho * ho * SAMPLES * k * k * cin * cout
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops / INT8_OPS_PER_S
-        print(f"int_conv {name} x{n}/batch: kernel {t[2]:.4f}/{t[3]:.4f} ms, "
-              f"plain {t[0]:.3f}/{t[5]:.3f} ms, float64 cuDNN conv alone "
-              f"{t[1]:.3f}/{t[4]:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} "
+        other = (f", im2col body {t[3]:.4f}/{t[4]:.4f} ms "
+               f"({im2col_ms / ms:.2f}x the kernel's time)" if both else "")
+        print(f"int_conv {name} x{n}/batch: kernel ({plan.design}) "
+              f"{t[2]:.4f}/{t[-3]:.4f} ms{other}, "
+              f"plain {t[0]:.3f}/{t[-1]:.3f} ms, float64 cuDNN conv alone "
+              f"{t[1]:.3f}/{t[-2]:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} "
               f"ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
               f"({nbytes} bytes {bytes_ms:.4f} ms, {ops} operations "
               f"{ops_ms:.4f} ms), kernel at {max(bytes_ms, ops_ms) / ms:.1%}"
               " of its bound", flush=True)
         tot["ms"] += n * ms
+        tot["im2col"] += n * im2col_ms
         tot["plain"] += n * plain_ms
         tot["f64"] += n * f64_ms
         tot["bytes"] += n * nbytes
@@ -730,8 +795,9 @@ def phase_conv_times(seed):
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"int_conv per batch ({CONVS_PER_BATCH} convs): kernel "
-          f"{tot['ms']:.3f} ms, plain {tot['plain']:.1f} ms, float64 cuDNN "
-          f"convs alone {tot['f64']:.1f} ms, bound {bound_ms:.4f} ms by "
+          f"{tot['ms']:.3f} ms (with the im2col body on every shape "
+          f"{tot['im2col']:.3f} ms), plain {tot['plain']:.1f} ms, float64 "
+          f"cuDNN convs alone {tot['f64']:.1f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({tot['bytes']} bytes {bytes_ms:.4f} ms, {tot['ops']}"
           f" operations {ops_ms:.4f} ms)")
     return tot["ms"], tot["plain"], bound_ms, bound_by
@@ -1070,9 +1136,13 @@ def phase_dense_times(seed):
         torch.addcmul(torch.mm(x, w), torch.sqrt(torch.mm(x2, s2) + 1e-8),
                       eps)
 
-    ops = 4 * b * k * n + b * k + k * n + 3 * b * n
+    # the kernel's work: the two products as 3xTF32 (three TF32 products
+    # each) on the tensor cores, the squares and the epilogue in float32
+    tf32_ops = 3 * 4 * b * k * n
+    fp32_ops = b * k + k * n + 3 * b * n
+    ops_ms = 1e3 * (tf32_ops / TF32_OPS_PER_S + fp32_ops / FP32_OPS_PER_S)
+    cuda_core_ms = 1e3 * (4 * b * k * n + fp32_ops) / FP32_OPS_PER_S
     nbytes = 4 * (b * k + 2 * k * n + 2 * b * n)
-    ops_ms = 1e3 * ops / FP32_OPS_PER_S
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1084,8 +1154,10 @@ def phase_dense_times(seed):
     print(f"bbb_dense fc_0 B={b} K={k} N={n}: kernel {t[1]:.4f}/{t[4]:.4f} "
           f"ms, plain {t[0]:.4f}/{t[5]:.4f} ms, two cuBLAS float32 products "
           f"+ epilogue (TF32 off) {t[2]:.4f}/{t[3]:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({ops} operations "
-          f"{ops_ms:.4f} ms, {nbytes} bytes {bytes_ms:.4f} ms)")
+          f"{bound_ms:.4f} ms by {bound_by} ({tf32_ops} TF32 operations "
+          f"and {fp32_ops} float32 {ops_ms:.4f} ms, {nbytes} bytes "
+          f"{bytes_ms:.4f} ms; the products on the float32 CUDA cores "
+          f"would be bound at {cuda_core_ms:.4f} ms)")
 
     # seed mode (qbn_tpu's _kernel_prng): the normals drawn in the kernel
     # against torch.randn + the plain version; eps is no longer read

@@ -33,34 +33,67 @@
 // outside the image read code 0, the activation zero point, which adds
 // nothing to the sum or the window sum. Offsets are 64-bit.
 //
-// Design. One CTA of 256 threads (8 warps) computes 128 output pixels x
-// up to 96 output channels of one sample; consecutive CTAs take
-// consecutive samples, so the CTAs in flight read and write whole runs of
-// the merged layout's S*C bytes per pixel. Per step of K = 32 it gathers
-// the im2col tile of the activations (4-byte loads where cin is a multiple
-// of 4) and the weight tile, transposed to [n][k], into shared memory
-// (48-byte rows: the fragment loads hit 32 distinct banks), and each warp
-// runs mma.sync m16n8k32 s8 x s8 -> s32 on its 16 rows. K is zero-padded
-// to a multiple of 32 in shared memory. The window sum is the A tile's row
-// sum (__dp4a with 0x01010101), taken in the same pass. The epilogue runs
-// in registers, stages the int8 codes in shared memory, and the CTA writes
-// them (and reads the residual) in 4-byte words along each pixel's run.
+// Two bodies, chosen by shape in ops/int_conv.py (plan_conv), never on
+// failure; both end in the same epilogue (conv_epilogue below).
+//
+// "im2col" (the stem, the 1x1/2 shortcuts, any shape the other does not
+// take). One CTA of 256 threads (8 warps) computes 128 output pixels x up
+// to 96 output channels of one sample; consecutive CTAs take consecutive
+// samples, so the CTAs in flight read and write whole runs of the merged
+// layout's S*C bytes per pixel. Per step of K = 32 it gathers the im2col
+// tile of the activations (4-byte loads where cin is a multiple of 4) and
+// the weight tile, transposed to [n][k], into shared memory (48-byte rows:
+// the fragment loads hit 32 distinct banks), and each warp runs mma.sync
+// m16n8k32 s8 x s8 -> s32 on its 16 rows. K is zero-padded to a multiple
+// of 32 in shared memory. The window sum is the A tile's row sum (__dp4a
+// with 0x01010101), taken in the same pass. This body waits on every
+// tile's loads between two barriers.
+//
+// "halo" (the 3x3 convs with cin % 4 == 0: the 16 block convs of the
+// flagship). A CTA owns one sample, bm = 128 or 256 consecutive output
+// pixels (output rows of one image, or whole images at the 8x8 and 4x4
+// stages) and bn = 8 * NT output channels. It copies the input rows and
+// columns those pixels read, with a one-pixel halo, into shared memory
+// once, by cp.async (8 bytes where a sample's run starts only 8-byte
+// aligned, as at cin = 24; 16 from cin = 48 on; taps outside the image
+// zero-filled by the copy's src-size 0: code 0 is the zero point and adds
+// nothing). Each input byte is then read from global memory once per CTA,
+// not once per tap. The A fragments of m16n8k32 are read straight from
+// that tile: the word of pixel r at contraction index k is at
+// pixoff[r] + koff[k / 4], two tables from the plan (4 consecutive k never
+// cross a tap when cin % 4 == 0), so the K loop does no index arithmetic;
+// the pixel pitch is padded so that a warp's fragment loads spread over
+// the banks, and the next k step's fragments are loaded while this step's
+// products run. The CTA's weight slice [K][bn] arrives by 16-byte
+// cp.async (one contiguous run when bn == cout, else a run of bn bytes per
+// k row): all of it in one chunk where it is small (up to 24 KB: the
+// stage-0 and stage-1 convs), else in chunks of 128 k rows through a
+// double-buffered ring, chunk c+1 in flight while chunk c is transposed
+// once to [n][k] (8-bit elements have no ldmatrix transpose) and
+// multiplied. The 8 warps are 8 x 1 (two m16 tiles and all NT n8 tiles
+// each: 256 pixels) at NT = 3 and 6, and 4 x 2 (two m16 tiles, six n8
+// tiles: 128 pixels) at NT = 12.
 //
 // What bounds it on an H100: the bytes. The 20 convs of the flagship
 // ResNet-18 at B = 256, S = 100 do 2.01 T int8 multiply-adds (4.02 T
-// operations, 2.03 ms at 1,979 TOPS) and move 12.43 GB (activations read
-// once, codes written once, weights; 3.71 ms at 3.35 TB/s). This first
-// kernel is single-buffered (no cp.async ring, no wgmma, no TMA), so it
-// waits on every tile load; those are a later change.
+// operations, 2.03 ms at 1,979 TOPS) and must move 11.60 GB (the input
+// rows and columns each conv reads, once; codes written once; weights;
+// 3.46 ms at 3.35 TB/s); the 16 3x3 convs 3.39 ms of it. The halo body
+// reads each input byte once per CTA; what it re-reads is the halo rows
+// and the weight slice per pixel tile, from L2. What holds it back is not
+// the loads of its K loop: its mma.sync products (wgmma is a later
+// change), the requantisation epilogue's instructions (an IEEE division
+// per code, kept for bitwise codes) and, at stage 0, the 24-byte sample
+// runs of the merged layout (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 128;        // output pixels per CTA
+constexpr int kBM = 128;        // output pixels per CTA (im2col body)
 constexpr int kBK = 32;         // contraction step: one m16n8k32
-constexpr int kThreads = 256;   // 8 warps x 16 rows
+constexpr int kThreads = 256;   // 8 warps
 constexpr int kRow = 48;        // shared-memory row stride, bytes
 constexpr int kCenteredK = 520;
 
@@ -90,6 +123,12 @@ struct QbnConvArgs {
   int* raw_acc;   // debug: (B, Ho, Wo, S, cout) int32 sums, no epilogue
   int* raw_win;   // debug: (B, Ho, Wo, S) int32 window sums
   long long vec_x, vec_out;           // 4-byte loads / stores allowed
+  // the halo body's plan (ops/int_conv.py ConvPlan)
+  const int* koff;                    // (ceil(K / 32) * 8,) byte offsets
+  const int* pixoff;                  // (bm,) byte offsets
+  long long halo, bm, nt, mt, wn, n_img, rows, h_in, w_in, pitch, vx, kc;
+  long long ring;
+  long long smem;
 };
 
 namespace {
@@ -113,6 +152,172 @@ __device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// cp.async of N bytes (4, 8 or 16) into shared memory; src_bytes 0
+// zero-fills (src must still be a valid address)
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(in ? N : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// out_off[r] for the CTA's rows r < BM (output pixels m0 + r in (b, ho, wo)
+// order): the element offset of the pixel's sample run, -1 past M
+__device__ __forceinline__ void row_offsets(const QbnConvArgs& a,
+                                            long long* out_off, long long m0,
+                                            int s, int BM) {
+  const long long M = a.B * a.Ho * a.Wo;
+  const long long hw_o = a.Ho * a.Wo;
+  const int Wo = (int)a.Wo;
+  const bool narrow = M < (1LL << 31);   // 32-bit divisions suffice
+  for (int r = threadIdx.x; r < BM; r += kThreads) {
+    const long long m = m0 + r;
+    long long off = -1;
+    if (m < M) {
+      const long long b = narrow ? (long long)((int)m / (int)hw_o) : m / hw_o;
+      const int rem = (int)(m - b * hw_o);
+      const int ho = rem / Wo, wo = rem - (rem / Wo) * Wo;
+      off = b * a.o_sb + ho * a.o_sh + wo * a.o_sw + s * a.o_ss;
+    }
+    out_off[r] = off;
+  }
+}
+
+// The epilogue of both bodies. The 8 warps are (8 / WN) x WN: warp w's MT
+// m16 tiles are rows 16 MT (w / WN) + 16 i + g (+ 8), its NTW n8 tiles
+// columns n0 + 8 NTW (w % WN) + 8 j + 2 t (+ 1); rowsum and out_off are
+// visible to the CTA. Requantises into Os (BM x 8 NTW WN codes), then the
+// CTA writes them (and reads the residual) in 4-byte words along each
+// pixel's run. With raw_acc set, writes the raw sums instead.
+template <int NTW, int MT, int WN>
+__device__ __forceinline__ void conv_epilogue(
+    const QbnConvArgs& a, const int (&acc)[MT][NTW][4], const int* rowsum,
+    const long long* out_off, int8_t* Os, long long m0, int n0, int BM,
+    int s, int K) {
+  constexpr int BN = 8 * NTW * WN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp / WN) * 16 * MT + g, c0 = (warp % WN) * 8 * NTW;
+  const int cout = (int)a.cout, S = (int)a.S;
+  const long long M = a.B * a.Ho * a.Wo;
+
+  if (a.raw_acc != nullptr) {   // debug entry: the raw sums
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 16 * i + 8 * (e >> 1);
+          const int n = n0 + c0 + j * 8 + 2 * t + (e & 1);
+          const long long m = m0 + r;
+          if (m < M && n < cout) {
+            a.raw_acc[(m * S + s) * cout + n] = acc[i][j][e];
+            if (n == 0) a.raw_win[m * S + s] = rowsum[r];
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const float scale = __fmul_rn(*a.x_scale, *a.w_scale);
+  const int zw = *a.w_zp;
+  const float zw_f = (float)zw;
+  const float out_scale = *a.out_scale;
+  const float zp = (float)*a.out_zp;
+  const float lo = (float)a.a_lo, hi = (float)a.a_hi;
+  const bool relu = a.relu != 0, centered = K <= kCenteredK;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 16 * i + 8 * (e >> 1);
+        const int nl = c0 + j * 8 + 2 * t + (e & 1);
+        const int n = n0 + nl;
+        const int ws = rowsum[r];
+        float y = centered
+            ? __int2float_rn(acc[i][j][e] - zw * ws)
+            : __fsub_rn(__int2float_rn(acc[i][j][e]),
+                        __fmul_rn(zw_f, __int2float_rn(ws)));
+        y = __fmul_rn(y, scale);
+        if (a.bias != nullptr && n < cout)
+          y = __fadd_rn(y, __ldg(a.bias + n));
+        Os[r * BN + nl] = (int8_t)(int)requant(y, out_scale, zp, relu, lo, hi);
+      }
+    }
+  }
+  __syncthreads();
+
+  const bool has_res = a.res != nullptr;
+  float o_scale = 0.f, r_scale = 0.f, ro_scale = 1.f, ro_zp = 0.f;
+  if (has_res) {
+    o_scale = out_scale;
+    r_scale = *a.res_scale;
+    ro_scale = *a.res_out_scale;
+    ro_zp = (float)*a.res_out_zp;
+  }
+  const bool res_relu = a.res_relu != 0;
+  const int ncols = min(BN, cout - n0);
+  if (a.vec_out) {   // ncols % 4 == 0, 4-byte aligned runs
+    // words per row: a constant (a cheap division) when all BN columns
+    // are the CTA's
+    const int wpr = ncols == BN ? BN / 4 : ncols >> 2;
+    for (int idx = tid; idx < BM * wpr; idx += kThreads) {
+      const int r = ncols == BN ? idx / (BN / 4) : idx / wpr;
+      const int q = idx - r * wpr;
+      const long long off = out_off[r];
+      if (off < 0) continue;
+      uint32_t v = *reinterpret_cast<const uint32_t*>(Os + r * BN + 4 * q);
+      const long long o = off + n0 + 4 * q;
+      if (has_res) {
+        const uint32_t rv = __ldg(reinterpret_cast<const unsigned int*>(
+            a.res + o));
+        uint32_t nv = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = __fadd_rn(
+              __fmul_rn((float)(int8_t)(v >> (8 * e)), o_scale),
+              __fmul_rn((float)(int8_t)(rv >> (8 * e)), r_scale));
+          const int8_t c =
+              (int8_t)(int)requant(y, ro_scale, ro_zp, res_relu, lo, hi);
+          nv |= (uint32_t)(uint8_t)c << (8 * e);
+        }
+        v = nv;
+      }
+      *reinterpret_cast<uint32_t*>(a.out + o) = v;
+    }
+  } else {
+    for (int idx = tid; idx < BM * ncols; idx += kThreads) {
+      const int r = idx / ncols, nl = idx - (idx / ncols) * ncols;
+      const long long off = out_off[r];
+      if (off < 0) continue;
+      const long long o = off + n0 + nl;
+      int8_t c = Os[r * BN + nl];
+      if (has_res) {
+        const float y = __fadd_rn(__fmul_rn((float)c, o_scale),
+                                  __fmul_rn((float)a.res[o], r_scale));
+        c = (int8_t)(int)requant(y, ro_scale, ro_zp, res_relu, lo, hi);
+      }
+      a.out[o] = c;
+    }
+  }
+}
+
+// -- the im2col body ------------------------------------------------------
+
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
 int_conv_kernel(const QbnConvArgs a) {
@@ -128,25 +333,14 @@ int_conv_kernel(const QbnConvArgs a) {
   const long long m0 = (long long)blockIdx.y * kBM;
   const int n0 = blockIdx.z * BN;
   const int H = (int)a.H, W = (int)a.W, cin = (int)a.cin, kw = (int)a.kw;
-  const int cout = (int)a.cout, S = (int)a.S;
+  const int cout = (int)a.cout;
   const int Ho = (int)a.Ho, Wo = (int)a.Wo, st = (int)a.stride;
   const int pad = (int)a.pad;
   const int K = (int)(a.kh * a.kw * a.cin);
   const long long M = a.B * a.Ho * a.Wo;
   const long long hw_o = (long long)Ho * Wo;
 
-  if (tid < kBM) {
-    const long long m = m0 + tid;
-    long long off = -1;
-    if (m < M) {
-      const long long b = m / hw_o;
-      const int rem = (int)(m - b * hw_o);
-      const int ho = rem / Wo, wo = rem - (rem / Wo) * Wo;
-      off = b * a.o_sb + ho * a.o_sh + wo * a.o_sw + s * a.o_ss;
-    }
-    out_off[tid] = off;
-  }
-
+  row_offsets(a, out_off, m0, s, kBM);
   // The rows this thread gathers: four rows, one 4-byte column quad each,
   // on the vector path; one row, 16 bytes of it, on the byte path.
   const bool vec = a.vec_x != 0;
@@ -172,10 +366,10 @@ int_conv_kernel(const QbnConvArgs a) {
     }
   }
 
-  int acc[NT][4];
+  int acc[1][NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+    acc[0][j][0] = acc[0][j][1] = acc[0][j][2] = acc[0][j][3] = 0;
   int rsum = 0;
 
   const int8_t* wsam = a.w + (long long)s * K * cout;
@@ -268,7 +462,7 @@ int_conv_kernel(const QbnConvArgs a) {
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int8_t* bc = Bs + (j * 8 + g) * kRow + 4 * t;
-      mma_s8(acc[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(bc),
+      mma_s8(acc[0][j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(bc),
              *reinterpret_cast<const uint32_t*>(bc + 16));
     }
     __syncthreads();
@@ -277,100 +471,259 @@ int_conv_kernel(const QbnConvArgs a) {
   rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
   if ((tid & 1) == 0) rowsum[tid >> 1] = rsum;
   __syncthreads();
+  conv_epilogue<NT, 1, 1>(a, acc, rowsum, out_off, Os, m0, n0, kBM, s, K);
+}
 
-  if (a.raw_acc != nullptr) {   // debug entry: the raw sums
+// -- the halo body --------------------------------------------------------
+
+// One chunk of kc k rows x BN columns of sample s's weights (K x cout,
+// row-major) into a ring slot [kc][BN], rows past K zero-filled.
+template <int BN>
+__device__ __forceinline__ void load_weight_chunk(const QbnConvArgs& a,
+                                                  int8_t* slot, int s,
+                                                  int n0, int k0, int kc,
+                                                  int K) {
+  const int cout = (int)a.cout;
+  const int8_t* wsam = a.w + (long long)s * K * cout;
+  const int rows = min(kc, K - k0);
+  if (BN == cout) {   // one contiguous run; K * cout % 16 == 0
+    const int8_t* src = wsam + (long long)k0 * cout;
+    const int valid = rows * BN;
+    for (int p = threadIdx.x; p < kc * BN / 16; p += kThreads) {
+      const bool in = 16 * p < valid;
+      cp_async<16>(slot + 16 * p, in ? src + 16 * p : wsam, in);
+    }
+  } else {            // a run of BN bytes per k row; cout, BN % 16 == 0
+    constexpr int per_row = BN / 16;
+    for (int p = threadIdx.x; p < kc * per_row; p += kThreads) {
+      const int r = p / per_row, q = p - r * per_row;
+      const bool in = r < rows;
+      cp_async<16>(slot + r * BN + 16 * q,
+                   in ? wsam + (long long)(k0 + r) * cout + n0 + 16 * q
+                      : wsam,
+                   in);
+    }
+  }
+}
+
+// The CTA's input tile: n_img images x h_in rows x w_in columns of pitch
+// bytes, cin of them copied in pieces of V bytes, zero-filled outside the
+// image (and past the last image). Thread tid copies pixels tid, tid + 256,
+// ...; their (image, row, column) advance without divisions.
+template <int V>
+__device__ __forceinline__ void load_halo(const QbnConvArgs& a, int8_t* halo,
+                                          int s, long long b0, int h0) {
+  const int cin = (int)a.cin, pitch = (int)a.pitch;
+  const int w_in = (int)a.w_in, h_in = (int)a.h_in;
+  const int H = (int)a.H, W = (int)a.W;
+  const int total = (int)a.n_img * h_in * w_in;
+  const int d_row = kThreads / w_in, d_col = kThreads - d_row * w_in;
+  int img = 0, row = threadIdx.x / w_in;
+  int col = threadIdx.x - row * w_in;
+  while (row >= h_in) row -= h_in, ++img;
+  const int8_t* xs = a.x + s * a.x_ss;
+  for (int px = threadIdx.x; px < total; px += kThreads) {
+    const long long b = b0 + img;
+    const int hi = h0 + row, wi = col - 1;
+    const bool in = b < a.B && hi >= 0 && hi < H && wi >= 0 && wi < W;
+    const int8_t* src = in ? xs + b * a.x_sb + hi * a.x_sh + wi * a.x_sw
+                           : a.x;
+    int8_t* dst = halo + px * pitch;
+    for (int v = 0; v < cin; v += V)
+      cp_async<V>(dst + v, in ? src + v : src, in);
+    col += d_col;
+    row += d_row;
+    if (col >= w_in) col -= w_in, ++row;
+    while (row >= h_in) row -= h_in, ++img;
+  }
+}
+
+// The A fragments of a k step for this thread's MT m16 tiles: rows pa / pb
+// (g and g + 8), k-quads at ko0 (k = 4 t) and ko1 (k = 4 t + 16)
+template <int MT>
+__device__ __forceinline__ void load_a(uint32_t (&af)[MT][4],
+                                       const int8_t* halo, const int* pa,
+                                       const int* pb, int ko0, int ko1) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+  for (int i = 0; i < MT; ++i) {
+    af[i][0] = *reinterpret_cast<const uint32_t*>(halo + pa[i] + ko0);
+    af[i][1] = *reinterpret_cast<const uint32_t*>(halo + pb[i] + ko0);
+    af[i][2] = *reinterpret_cast<const uint32_t*>(halo + pa[i] + ko1);
+    af[i][3] = *reinterpret_cast<const uint32_t*>(halo + pb[i] + ko1);
+  }
+}
+
+// 4x4 byte transpose: c[j] holds byte j of r[0..3], in order
+__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* c) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// CTAs per SM the register allocation leaves room for: 4 at NT = 3 (64
+// registers) and 3 above (85); on the H100 both ran faster than the
+// compiler's own choice, and 4 at NT = 12 spills
+template <int NT>
+constexpr int halo_min_blocks() {
+  return NT == 3 ? 4 : 3;
+}
+
+template <int NT, int MT, int WN>
+__global__ void __launch_bounds__(kThreads, halo_min_blocks<NT>())
+int_conv_halo_kernel(const QbnConvArgs a) {
+  constexpr int BN = 8 * NT, NTW = NT / WN;
+  constexpr int BM = 8 / WN * 16 * MT;
+  extern __shared__ __align__(16) int8_t smem[];
+  // [halo tile, later the output codes | weight ring R x [kc][BN] |
+  //  transposed chunk [BN][kc + 16] | rowsum | out_off | koff table]
+  const int kc = (int)a.kc, R = (int)a.ring, bt_row = kc + 16;
+  const int halo_region =
+      (int)((max(a.n_img * a.h_in * a.w_in * a.pitch, (long long)BM * BN) +
+             15) / 16 * 16);
+  int8_t* halo = smem;
+  int8_t* ring = smem + halo_region;
+  int8_t* Bt = ring + R * kc * BN;
+  int* rowsum = reinterpret_cast<int*>(Bt + BN * bt_row);
+  long long* out_off = reinterpret_cast<long long*>(rowsum + BM);
+  int* kt = reinterpret_cast<int*>(out_off + BM);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int s = blockIdx.x;
+  const long long m0 = (long long)blockIdx.y * BM;
+  const int n0 = blockIdx.z * BN;
+  const int K = (int)(a.kh * a.kw * a.cin);
+  const int chunks = (K + kc - 1) / kc;
+  for (int i = tid; i < (K + kBK - 1) / kBK * 8; i += kThreads)
+    kt[i] = __ldg(a.koff + i);
+
+  // the tile's first output pixel: image b0, output row ho0
+  const long long hw_o = a.Ho * a.Wo;
+  const long long b0 = m0 / hw_o;
+  const int h0 = (int)((m0 - b0 * hw_o) / a.Wo) * (int)a.stride - 1;
+  if (a.vx == 16)
+    load_halo<16>(a, halo, s, b0, h0);
+  else if (a.vx == 8)
+    load_halo<8>(a, halo, s, b0, h0);
+  else
+    load_halo<4>(a, halo, s, b0, h0);
+  cp_commit();
+  for (int c = 0; c < R; ++c) {   // the ring's first R chunks in flight
+    if (c < chunks)
+      load_weight_chunk<BN>(a, ring + c * kc * BN, s, n0, c * kc, kc, K);
+    cp_commit();
+  }
+  row_offsets(a, out_off, m0, s, BM);
+
+  // this warp's rows and columns: (8 / WN) x WN warps
+  const int r0 = (warp / WN) * 16 * MT + g, c0 = (warp % WN) * 8 * NTW;
+  int pa[MT], pb[MT];   // this thread's pixels' window origins in the tile
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = warp * 16 + g + 8 * (e >> 1);
-        const int n = n0 + j * 8 + 2 * t + (e & 1);
-        const long long m = m0 + r;
-        if (m < M && n < cout) {
-          a.raw_acc[(m * S + s) * cout + n] = acc[j][e];
-          if (n == 0) a.raw_win[m * S + s] = rowsum[r];
-        }
+  for (int i = 0; i < MT; ++i) {
+    pa[i] = __ldg(a.pixoff + r0 + 16 * i);
+    pb[i] = __ldg(a.pixoff + r0 + 16 * i + 8);
+  }
+  int acc[MT][NTW][4];
+  int rs[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    rs[i][0] = rs[i][1] = 0;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    // the halo tile and chunk c have landed (chunk c + 1 may not)
+    if (R == 1)
+      cp_wait<0>();
+    else
+      cp_wait<1>();
+    __syncthreads();   // ... for every thread; Bt is free
+    {  // transpose chunk c: [kc][BN] -> [BN][kc + 16], in blocks of
+       // 4 k-quads x 8 n-quads per warp (4-way bank conflicts at most)
+      const int8_t* slot = ring + (c % R) * kc * BN;
+      const int kblocks = kc / 16, nblocks = (BN / 4 + 7) / 8;
+      for (int blk = warp; blk < kblocks * nblocks; blk += kThreads / 32) {
+        const int nb = blk / kblocks;
+        const int kq = 4 * (blk - nb * kblocks) + (lane >> 3);
+        const int nq = 8 * nb + (lane & 7);
+        if (nq >= BN / 4) continue;
+        const int8_t* src = slot + 4 * kq * BN + 4 * nq;
+        uint32_t r[4], col[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          r[e] = *reinterpret_cast<const uint32_t*>(src + e * BN);
+        transpose4(r, col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          *reinterpret_cast<uint32_t*>(Bt + (4 * nq + e) * bt_row + 4 * kq) =
+              col[e];
       }
     }
-    return;
-  }
+    __syncthreads();   // Bt holds chunk c; its ring slot is free
+    if (c + R < chunks)
+      load_weight_chunk<BN>(a, ring + (c % R) * kc * BN, s, n0,
+                            (c + R) * kc, kc, K);
+    cp_commit();
 
-  const float scale = __fmul_rn(*a.x_scale, *a.w_scale);
-  const int zw = *a.w_zp;
-  const float zw_f = (float)zw;
-  const float out_scale = *a.out_scale;
-  const float zp = (float)*a.out_zp;
-  const float lo = (float)a.a_lo, hi = (float)a.a_hi;
-  const bool relu = a.relu != 0, centered = K <= kCenteredK;
+    const int k0 = c * kc;
+    const int steps = min(kc, K - k0 + kBK - 1) / kBK;
+    // the A fragments of step st + 1 are loaded while step st's products
+    // run; q = k / 4 for k = 4 t and 4 t + 16 of the step
+    uint32_t af[MT][4], nf[MT][4];
+    load_a<MT>(af, halo, pa, pb, kt[k0 / 4 + t], kt[k0 / 4 + t + 4]);
+    for (int st = 0; st < steps; ++st) {
+      const int q0 = (k0 + st * kBK) / 4 + t;
+      const int qn = st + 1 < steps ? q0 + 8 : q0;
+      load_a<MT>(nf, halo, pa, pb, kt[qn], kt[qn + 4]);
+      const int one0 = 4 * q0 < K ? 0x01010101 : 0;
+      const int one1 = 4 * (q0 + 4) < K ? 0x01010101 : 0;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+      for (int i = 0; i < MT; ++i) {
+        rs[i][0] = __dp4a((int)af[i][0], one0, rs[i][0]);
+        rs[i][0] = __dp4a((int)af[i][2], one1, rs[i][0]);
+        rs[i][1] = __dp4a((int)af[i][1], one0, rs[i][1]);
+        rs[i][1] = __dp4a((int)af[i][3], one1, rs[i][1]);
+      }
+      const int8_t* bt = Bt + (c0 + g) * bt_row + st * kBK + 4 * t;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = warp * 16 + g + 8 * (e >> 1);
-      const int nl = j * 8 + 2 * t + (e & 1);
-      const int n = n0 + nl;
-      const int ws = rowsum[r];
-      float y = centered
-          ? __int2float_rn(acc[j][e] - zw * ws)
-          : __fsub_rn(__int2float_rn(acc[j][e]),
-                      __fmul_rn(zw_f, __int2float_rn(ws)));
-      y = __fmul_rn(y, scale);
-      if (a.bias != nullptr && n < cout) y = __fadd_rn(y, __ldg(a.bias + n));
-      Os[r * BN + nl] = (int8_t)(int)requant(y, out_scale, zp, relu, lo, hi);
+      for (int j = 0; j < NTW; ++j) {
+        const int8_t* bc = bt + j * 8 * bt_row;
+        const uint32_t b0v = *reinterpret_cast<const uint32_t*>(bc);
+        const uint32_t b1v = *reinterpret_cast<const uint32_t*>(bc + 16);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          mma_s8(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3], b0v,
+                 b1v);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[i][e] = nf[i][e];
     }
   }
-  __syncthreads();
+  cp_wait<0>();
 
-  const bool has_res = a.res != nullptr;
-  float o_scale = 0.f, r_scale = 0.f, ro_scale = 1.f, ro_zp = 0.f;
-  if (has_res) {
-    o_scale = out_scale;
-    r_scale = *a.res_scale;
-    ro_scale = *a.res_out_scale;
-    ro_zp = (float)*a.res_out_zp;
-  }
-  const bool res_relu = a.res_relu != 0;
-  const int ncols = min(BN, cout - n0);
-  if (a.vec_out) {   // ncols % 4 == 0, 4-byte aligned runs
-    const int wpr = ncols >> 2;
-    for (int idx = tid; idx < kBM * wpr; idx += kThreads) {
-      const int r = idx / wpr, q = idx - (idx / wpr) * wpr;
-      const long long off = out_off[r];
-      if (off < 0) continue;
-      uint32_t v = *reinterpret_cast<const uint32_t*>(Os + r * BN + 4 * q);
-      const long long o = off + n0 + 4 * q;
-      if (has_res) {
-        const uint32_t rv = __ldg(reinterpret_cast<const unsigned int*>(
-            a.res + o));
-        uint32_t nv = 0;
+  // window sums: the 4 lanes of a row group hold its 4 k-quads
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float y = __fadd_rn(
-              __fmul_rn((float)(int8_t)(v >> (8 * e)), o_scale),
-              __fmul_rn((float)(int8_t)(rv >> (8 * e)), r_scale));
-          const int8_t c =
-              (int8_t)(int)requant(y, ro_scale, ro_zp, res_relu, lo, hi);
-          nv |= (uint32_t)(uint8_t)c << (8 * e);
-        }
-        v = nv;
-      }
-      *reinterpret_cast<uint32_t*>(a.out + o) = v;
-    }
-  } else {
-    for (int idx = tid; idx < kBM * ncols; idx += kThreads) {
-      const int r = idx / ncols, nl = idx - (idx / ncols) * ncols;
-      const long long off = out_off[r];
-      if (off < 0) continue;
-      const long long o = off + n0 + nl;
-      int8_t c = Os[r * BN + nl];
-      if (has_res) {
-        const float y = __fadd_rn(__fmul_rn((float)c, o_scale),
-                                  __fmul_rn((float)a.res[o], r_scale));
-        c = (int8_t)(int)requant(y, ro_scale, ro_zp, res_relu, lo, hi);
-      }
-      a.out[o] = c;
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = rs[i][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0 && c0 == 0) rowsum[r0 + 16 * i + 8 * h] = v;
     }
   }
+  __syncthreads();   // rowsum, out_off visible; the halo tile is free
+  conv_epilogue<NTW, MT, WN>(a, acc, rowsum, out_off, halo, m0, n0, BM, s,
+                             K);
 }
 
 template <int NT>
@@ -384,14 +737,39 @@ int launch(const QbnConvArgs& a, long long m_tiles, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int NT, int MT, int WN>
+int launch_halo(const QbnConvArgs& a, cudaStream_t stream) {
+  constexpr int BN = 8 * NT, BM = 8 / WN * 16 * MT;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      int_conv_halo_kernel<NT, MT, WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long m_tiles = (a.B * a.Ho * a.Wo + BM - 1) / BM;
+  if (a.bm != BM || a.cout % BN != 0 || a.ring < 1 || a.ring > 2 ||
+      a.kc % 32 != 0 || m_tiles > 65535 ||
+      a.S > 2147483647LL || a.smem > 232448)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)a.S, (unsigned)m_tiles, (unsigned)(a.cout / BN));
+  int_conv_halo_kernel<NT, MT, WN>
+      <<<grid, kThreads, (size_t)a.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 extern "C" int qbn_int_conv(const QbnConvArgs* a, void* stream) {
   const long long M = a->B * a->Ho * a->Wo;
   if (M <= 0 || a->S <= 0 || a->cout <= 0) return 0;
-  const long long m_tiles = (M + kBM - 1) / kBM;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->halo) {   // the (nt, mt, wn) the plan may choose
+    const long long key = a->nt * 100 + a->mt * 10 + a->wn;
+    if (key == 321) return launch_halo<3, 2, 1>(*a, st);
+    if (key == 621) return launch_halo<6, 2, 1>(*a, st);
+    if (key == 1222) return launch_halo<12, 2, 2>(*a, st);
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long m_tiles = (M + kBM - 1) / kBM;
   const long long nt = (a->cout + 7) / 8;
   if (nt <= 1) return launch<1>(*a, m_tiles, st);
   if (nt <= 3) return launch<3>(*a, m_tiles, st);

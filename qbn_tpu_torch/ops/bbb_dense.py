@@ -6,8 +6,9 @@ qbn_tpu/ops/pallas/bbb_dense.py).
 in float32, for Bayes-by-backprop training: x (B, K) activations, w (K, N)
 posterior mean, sp (K, N) softplus'd posterior std, eps (B, N) standard
 normals. On a CUDA tensor `bbb_dense` launches the hand-written kernel of
-`csrc/bbb_dense.cu` (it shares the x tile between the two products and
-splits K across CTAs so that the grid fills the card) or raises; there is
+`csrc/bbb_dense.cu` (3xTF32 products on the tensor cores, fed by a
+cp.async ring; it shares the x tile between the two products and splits K
+across CTAs so that the grid fills the card) or raises; there is
 no fallback. On a CPU tensor it runs `bbb_dense_plain`. eps comes from
 `noise`, or, without it, from a Philox stream inside the kernel keyed by a
 seed and offset taken from the caller's torch.Generator (on the CPU,
@@ -54,14 +55,15 @@ def _lib():
 
 
 def split_k(b: int, k: int, n: int, sms: int, bm: int = 64, bn: int = 64,
-            bk: int = 16):
+            bk: int = 32):
     """(splits, k_chunk): how many CTAs share each output tile and how much
-    of K each takes. Enough splits for about two CTAs per SM, each with at
-    least four K-steps; k_chunk is a multiple of bk and every split is
-    non-empty."""
+    of K each takes. Split only as far as one CTA per SM needs (one CTA's
+    3xTF32 products keep an SM's tensor cores busy: two per SM measured no
+    faster on the H100), each split with at least two K-steps; k_chunk is
+    a multiple of bk and every split is non-empty."""
     tiles = math.ceil(b / bm) * math.ceil(n / bn)
     steps = max(1, math.ceil(k / bk))
-    splits = max(1, min(math.ceil(2 * sms / tiles), steps // 4))
+    splits = max(1, min(sms // tiles, steps // 2))
     k_chunk = math.ceil(steps / splits) * bk
     return max(1, math.ceil(k / k_chunk)), k_chunk
 

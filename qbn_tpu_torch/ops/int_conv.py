@@ -20,8 +20,15 @@ the sub-8-bit clip, - out_zp.
 On a CUDA tensor `int_conv_merged`, `mc_group_conv` and `int_conv_sums`
 launch the hand-written kernel of `csrc/int_conv.cu` (an int8 implicit
 GEMM on the tensor cores with exact int32 sums) or raise; there is no
-fallback. On a CPU tensor they run the plain versions beside them, whose
-integer sums come from library convolutions in float64, which holds them
+fallback. The kernel has two bodies, chosen by shape in `plan_conv`, never
+on failure: "halo" for the 3x3 convs with cin % 4 == 0 (the activations of
+a tile of output pixels staged once in shared memory with their halo, the
+weights streamed through an async-copy ring) and "im2col" for the rest
+(the stem, the 1x1 shortcuts: an im2col tile gathered per K step). The
+plan, with its k -> offset and pixel -> offset tables, is computed here and
+passed to the kernel, so the CPU tests check what the kernel reads. On a
+CPU tensor they run the plain versions beside them, whose integer sums
+come from library convolutions in float64, which holds them
 exactly (for some float32 3x3 shapes cuDNN picks an algorithm that is not
 exact on integers: the stage-1 48->48 conv at B=256, S=100 came out 0.125
 off on an H100).
@@ -30,8 +37,10 @@ off on an H100).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,11 +48,12 @@ from qbn_tpu_torch.ops import _build
 
 _CENTERED_K = (1 << 24) // (254 * 127)           # 520
 _MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
-_BM = 128                                        # output pixels per CTA
 
-# Kernel launches since the count was last set to 0; chip_smoke.py reads
-# it to show that the main path went through the kernel.
+# Kernel launches since the count was last set to 0, in all and by design;
+# chip_smoke.py reads them to show that the main path went through the
+# kernel.
 launches = 0
+launches_by_design = {"halo": 0, "im2col": 0}
 
 
 # -- the plain versions ---------------------------------------------------
@@ -211,6 +221,205 @@ def _strides(strides) -> int:
     return int(sh)
 
 
+# -- the tile plan --------------------------------------------------------
+
+SMEM_LIMIT = 232_448          # shared memory one CTA may use on an H100
+SMEM_TWO_CTAS = 113 * 1024    # at most this for two CTAs per SM
+_KSTEP = 32                   # contraction step: one m16n8k32
+# the warp layout (m16 tiles a warp, warps along n) the halo body is built
+# for, by n8 tiles per CTA: 256 pixels x 8 warps at 3 and 6 n8 tiles; at 12
+# the warps are 4 x 2, 128 pixels, so that the B fragments a warp loads
+# feed two m16 tiles (the accumulators of 256 pixels x 12 n8 tiles a warp
+# take 150 registers, one CTA per SM, and measured slower on the H100)
+_LAYOUTS = {3: (2, 1), 6: (2, 1), 12: (2, 2)}
+_IM2COL_BM = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How one conv shape runs on the kernel.
+
+    design "halo": a CTA owns one sample, bm consecutive output pixels
+    (`rows` output rows of one image, or `n_img` whole images) and bn
+    output channels; its input rows and columns plus a one-pixel halo,
+    (n_img, h_in, w_in) pixels of `pitch` bytes, are copied into shared
+    memory once, in pieces of vx bytes, zero-filled outside the image. The
+    A fragment of output pixel r at contraction index k (a multiple of 4)
+    is the word at pixoff[r] + koff[k // 4] of that tile. The weights
+    stream in chunks of kc k rows through a ring of `ring` slots (1: one
+    chunk, all of K, where it is small; else 2). The 8 warps are
+    (8 / wn) x wn: each owns 16 * mt pixels and bn / wn of the bn = 8 * nt
+    channels.
+    design "im2col": the first body, 128 pixels x 8 * nt channels per CTA,
+    an im2col tile gathered from global memory per K step."""
+    design: str
+    reason: str
+    bm: int
+    nt: int
+    mt: int = 1
+    wn: int = 1
+    n_img: int = 0
+    rows: int = 0
+    h_in: int = 0
+    w_in: int = 0
+    pitch: int = 0
+    vx: int = 0
+    kc: int = 0
+    ring: int = 0
+    halo_bytes: int = 0
+    smem_bytes: int = 0
+    koff: tuple = ()
+    pixoff: tuple = ()
+
+    @property
+    def bn(self) -> int:
+        return 8 * self.nt
+
+
+def _im2col_nt(cout: int) -> int:
+    nt = -(-cout // 8)
+    return 1 if nt <= 1 else 3 if nt <= 3 else 6 if nt <= 6 else 12
+
+
+def _koff(k, cin, kw, w_in, pitch):
+    """Byte offset in a halo tile of contraction index 4q (tap-major, then
+    channel, as the weights are laid out) for q < ceil(k / 32) * 8; 0 for
+    the zero-padded k >= K, whose weights are zero."""
+    kp = -(-k // _KSTEP) * _KSTEP
+    out = []
+    for kk in range(0, kp, 4):
+        if kk < k:
+            tap, ci = divmod(kk, cin)
+            dh, dw = divmod(tap, kw)
+            out.append((dh * w_in + dw) * pitch + ci)
+        else:
+            out.append(0)
+    return out
+
+
+def _pixoff(bm, rows, wo, stride, h_in, w_in, pitch):
+    """Byte offset in a halo tile of the window origin of each of a CTA's
+    bm output pixels (image, row, column in (b, ho, wo) order)."""
+    out = []
+    for r in range(bm):
+        img, rem = divmod(r, rows * wo)
+        ho, wc = divmod(rem, wo)
+        out.append(((img * h_in + ho * stride) * w_in + wc * stride) * pitch)
+    return out
+
+
+def _conflicts(pixoff, koff):
+    """Shared-memory wavefronts of all the A fragment loads of one CTA: for
+    each load (a warp's 8 rows g x 4 k-quads t), the most distinct 4-byte
+    words that fall in one of the 32 banks, summed."""
+    pix = np.asarray(pixoff, dtype=np.int64).reshape(-1, 8)     # row groups
+    ko = np.asarray(koff, dtype=np.int64).reshape(-1, 4)        # k-quads t
+    words = (pix[:, None, :, None] + ko[None, :, None, :]) // 4
+    words = np.sort(words.reshape(-1, 32), axis=1)
+    first = np.ones_like(words, dtype=bool)
+    first[:, 1:] = words[:, 1:] != words[:, :-1]
+    counts = np.zeros((words.shape[0], 32), dtype=np.int64)
+    rows = np.nonzero(first)[0]
+    np.add.at(counts, (rows, words[first] % 32), 1)
+    return int(counts.max(axis=1).sum())
+
+
+def halo_smem(halo_bytes, bm, bn, kc, ring, k):
+    """Shared memory of the halo body: the halo tile (which later holds the
+    bm x bn output codes), the weight ring (ring x kc x bn), the transposed
+    chunk (bn rows of kc + 16 bytes), the row sums and output offsets, and
+    the k -> offset table."""
+    region = -(-max(halo_bytes, bm * bn) // 16) * 16
+    return (region + ring * kc * bn + bn * (kc + 16) + 12 * bm
+            + 4 * len(range(0, k, _KSTEP)) * 8)
+
+
+def _rings(k, bn):
+    """(kc, ring) in order of preference: all of K in one chunk where the
+    slice is small (up to 24 KB), else chunks of 128 k rows in a
+    double-buffered ring (on the H100 a third slot or shorter chunks
+    measured no faster), then shorter chunks where shared memory is
+    short."""
+    kp = -(-k // _KSTEP) * _KSTEP
+    return ([(kp, 1)] if kp * bn <= 24 * 1024 else []) + [
+        (128, 2), (64, 2), (32, 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
+              x_align=16, w_align=16):
+    """The ConvPlan of one conv shape (per-sample input (h, w, cin), output
+    channels cout, a kh x kw kernel). x_align / w_align: the largest of 16,
+    8, 4, 2, 1 dividing the activations' base address and every element
+    stride, and the weights' base address."""
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w + 2 * pad - kw) // stride + 1
+    k = kh * kw * cin
+    bn = min(cout, 96)
+    im2col = functools.partial(ConvPlan, "im2col", bm=_IM2COL_BM,
+                               nt=_im2col_nt(cout))
+    if (kh, kw, pad) != (3, 3, 1) or stride not in (1, 2):
+        return im2col(reason="not a 3x3 conv with padding 1")
+    if shared_x:
+        return im2col(reason="shared input (the stem)")
+    if cin % 4 or x_align < 4:
+        return im2col(reason="input rows not in 4-byte words")
+    if cout % bn or bn % 8 or bn // 8 not in _LAYOUTS:
+        return im2col(reason=f"{cout} output channels")
+    if (k * cout) % 16 or w_align < 16 or (bn < cout and cout % 16):
+        return im2col(reason="weight rows not in 16-byte pieces")
+    mt, wn = _LAYOUTS[bn // 8]
+    bm = 8 // wn * 16 * mt
+    if ho * wo >= bm and bm % wo == 0 and ho % (bm // wo) == 0:
+        n_img, rows = 1, bm // wo          # output rows of one image
+    elif ho * wo < bm and bm % (ho * wo) == 0:
+        n_img, rows = bm // (ho * wo), ho  # whole images
+    else:
+        return im2col(reason=f"no tile of whole rows or images of {bm}")
+    h_in, w_in = (rows - 1) * stride + 3, (wo - 1) * stride + 3
+    best = None
+    for pitch in range(cin, cin + 32, 4):
+        vx = max(v for v in (16, 8, 4)
+                 if pitch % v == 0 and cin % v == 0 and v <= x_align)
+        koff = _koff(k, cin, kw, w_in, pitch)
+        pixoff = _pixoff(bm, rows, wo, stride, h_in, w_in, pitch)
+        score = (_conflicts(pixoff, koff), -vx, pitch)
+        if best is None or score < best[0]:
+            best = (score, pitch, vx, koff, pixoff)
+    _score, pitch, vx, koff, pixoff = best
+    halo = n_img * h_in * w_in * pitch
+    for limit in (SMEM_TWO_CTAS, SMEM_LIMIT):
+        for kc, ring in _rings(k, bn):
+            smem = halo_smem(halo, bm, bn, kc, ring, k)
+            if smem <= limit:
+                return ConvPlan(
+                    "halo", f"3x3/{stride}, cin % 4 == 0", bm=bm,
+                    nt=bn // 8, mt=mt, wn=wn, n_img=n_img, rows=rows,
+                    h_in=h_in, w_in=w_in, pitch=pitch, vx=vx, kc=kc,
+                    ring=ring, halo_bytes=halo, smem_bytes=smem,
+                    koff=tuple(koff), pixoff=tuple(pixoff))
+    return im2col(reason="no tile fits in shared memory")
+
+
+def _align(ptr: int, strides) -> int:
+    for v in (16, 8, 4, 2):
+        if ptr % v == 0 and all(st % v == 0 for st in strides):
+            return v
+    return 1
+
+
+_TABLES: dict = {}
+
+
+def _tables(plan: ConvPlan, device):
+    """The plan's koff and pixoff tables, one int32 tensor on the device."""
+    key = (plan, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.tensor(plan.koff + plan.pixoff,
+                                    dtype=torch.int32, device=device)
+    return _TABLES[key]
+
+
 # -- the kernel -----------------------------------------------------------
 
 _FIELDS = (
@@ -220,11 +429,12 @@ _FIELDS = (
     "x_scale", "w_scale", "w_zp", "out_scale", "out_zp",
     "res_scale", "res_out_scale", "res_out_zp",
     "relu", "res_relu", "a_lo", "a_hi", "raw_acc", "raw_win",
-    "vec_x", "vec_out")
+    "vec_x", "vec_out", "koff", "pixoff", "halo", "bm", "nt", "mt", "wn",
+    "n_img", "rows", "h_in", "w_in", "pitch", "vx", "kc", "ring", "smem")
 _PTRS = frozenset((
     "x", "w", "out", "res", "bias", "x_scale", "w_scale", "w_zp",
     "out_scale", "out_zp", "res_scale", "res_out_scale", "res_out_zp",
-    "raw_acc", "raw_win"))
+    "raw_acc", "raw_win", "koff", "pixoff"))
 
 
 class _Args(ctypes.Structure):
@@ -253,10 +463,12 @@ def _ptr(t):
 
 def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
             out_strides, q=None, bias=None, residual=None, relu=False,
-            res_relu=False, a_lo=0, a_hi=127, raw=None):
+            res_relu=False, a_lo=0, a_hi=127, raw=None, design=None):
     """One launch of the kernel. x_strides / out_strides: element strides
     of (b, h, w, sample); x_shape (B, H, W, cin); out_shape (Ho, Wo);
-    raw: (acc, winsum) int32 buffers for the debug entry."""
+    raw: (acc, winsum) int32 buffers for the debug entry. design: None
+    takes the plan's; "im2col" forces the im2col body on any shape (for
+    comparing the two designs; nothing on the main path passes it)."""
     global launches
     b, h, wd, cin = x_shape
     s, kh, kw, _cin, cout = w.shape
@@ -264,9 +476,18 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
     k = kh * kw * cin
     if k > _MAX_K:
         raise ValueError(f"K = {k} would overflow the int32 sums")
-    if -(-b * ho * wo // _BM) > 65535:
+    plan = plan_conv(h, wd, cin, cout, kh, kw, stride, pad,
+                     x_strides[3] == 0, _align(x.data_ptr(), x_strides),
+                     _align(w.data_ptr(), ()))
+    if design == "im2col" and plan.design != "im2col":
+        plan = ConvPlan("im2col", "forced", bm=_IM2COL_BM,
+                        nt=_im2col_nt(cout))
+    elif design not in (None, plan.design):
+        raise ValueError(f"design {design!r} cannot run this shape: "
+                         f"{plan.reason}")
+    if -(-b * ho * wo // plan.bm) > 65535:
         raise ValueError(f"{b * ho * wo} output pixels per sample exceed the "
-                         f"kernel's grid ({65535 * _BM})")
+                         f"kernel's grid ({65535 * plan.bm})")
     # 4-byte loads and stores where every run starts on a 4-byte boundary
     vec_x = (cin % 4 == 0 and all(v % 4 == 0 for v in x_strides)
              and x.data_ptr() % 4 == 0)
@@ -288,7 +509,14 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
         relu=int(relu), res_relu=int(res_relu), a_lo=int(a_lo),
         a_hi=int(a_hi), raw_acc=_ptr(raw[0]) if raw else None,
         raw_win=_ptr(raw[1]) if raw else None, vec_x=int(vec_x),
-        vec_out=int(vec_out))
+        vec_out=int(vec_out), halo=int(plan.design == "halo"), bm=plan.bm,
+        nt=plan.nt, mt=plan.mt, wn=plan.wn, n_img=plan.n_img, rows=plan.rows,
+        h_in=plan.h_in, w_in=plan.w_in, pitch=plan.pitch, vx=plan.vx,
+        kc=plan.kc, ring=plan.ring, smem=plan.smem_bytes)
+    if plan.design == "halo":
+        table = _tables(plan, x.device)
+        args.koff = table.data_ptr()
+        args.pixoff = table.data_ptr() + 4 * len(plan.koff)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -296,6 +524,7 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
     if err != 0:
         raise RuntimeError(f"qbn_int_conv launch failed: cudaError {err}")
     launches += 1
+    launches_by_design[plan.design] += 1
 
 
 def _merged_geometry(x_codes, w_codes, strides, padding, shared_x):
@@ -323,7 +552,7 @@ def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
                     a_lo: int, a_hi: int, relu: bool = False,
                     shared_x: bool = False, residual=None,
                     res_scale=None, res_out_scale=None, res_out_zp=None,
-                    res_relu: bool = False):
+                    res_relu: bool = False, _design=None):
     """All-samples quantised conv in the MERGED channel layout.
 
     x_codes: (B, H, W, S*cin) int8 codes, sample-major channel groups, or
@@ -333,6 +562,8 @@ def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
     residual (optional): (B, H', W', S*cout) int8 codes at scale
       res_scale; the quantised add (dequant both, add, requant to
       res_out_scale/zp, optional ReLU) then follows the conv's requant.
+    _design: private, for comparing the kernel's two bodies (see
+      `_launch`); the main path never passes it.
     Returns (B, H', W', S*cout) int8 codes.
     """
     dev = x_codes.device
@@ -357,13 +588,14 @@ def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
     out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
     _launch(x_codes, x_strides, x_shape, w_codes, stride, pad, (ho, wo), out,
             (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
-            residual, relu, res_relu, a_lo, a_hi)
+            residual, relu, res_relu, a_lo, a_hi, design=_design)
     return out
 
 
 def mc_group_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
                   out_scale, out_zp, a_lo: int, a_hi: int,
-                  relu: bool = False, strides=(1, 1), padding=None):
+                  relu: bool = False, strides=(1, 1), padding=None,
+                  _design=None):
     """Per-sample int8 conv in K3's layout: (S, B, H, W, cin) x
     (S, kh, kw, cin, cout) -> (S, B, H', W', cout) int8 codes, with
     int_conv_merged's epilogue. padding defaults to kh // 2 on each side
@@ -395,11 +627,12 @@ def mc_group_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
     _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
             (b, h, wd, cin), w_codes, stride, pad, (ho, wo), out,
             (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
-            None, relu, False, a_lo, a_hi)
+            None, relu, False, a_lo, a_hi, design=_design)
     return out
 
 
-def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False):
+def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False,
+                  _design=None):
     """The raw sums that int_conv_merged's epilogue starts from, for
     checking: (acc (B, H', W', S, cout), winsum (B, H', W', S)) int32, acc
     the conv of the codes with the weight codes (no zero point), winsum the
@@ -414,5 +647,15 @@ def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False):
     acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
     win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
     _launch(x_codes, x_strides, x_shape, w_codes, stride, pad, (ho, wo), None,
-            (0, 0, 0, 0), raw=(acc, win))
+            (0, 0, 0, 0), raw=(acc, win), design=_design)
     return acc, win
+
+
+def merged_plan(x_codes, w_codes, strides, padding, shared_x: bool = False):
+    """The ConvPlan that `int_conv_merged` runs these operands with."""
+    _stride, pad, (_b, h, wd, cin), x_strides, _hw = _merged_geometry(
+        x_codes, w_codes, strides, padding, shared_x)
+    _s, kh, kw, _cin, cout = w_codes.shape
+    return plan_conv(h, wd, cin, cout, kh, kw, _strides(strides), pad,
+                     shared_x, _align(x_codes.data_ptr(), x_strides),
+                     _align(w_codes.data_ptr(), ()))

@@ -219,14 +219,14 @@ def test_cpu_draws_from_generator_without_noise():
                                    (4096, 16, 2560)])
 def test_split_k_partitions_k(b, k, n):
     """The wrapper's split of K: every split non-empty, k_chunk a multiple
-    of the kernel's 16-deep step, the splits covering K exactly once."""
+    of the kernel's 32-deep step, the splits covering K exactly once."""
     splits, k_chunk = bd.split_k(b, k, n, sms=132)
-    assert k_chunk % 16 == 0 and splits >= 1
+    assert k_chunk % 32 == 0 and splits >= 1
     starts = [s * k_chunk for s in range(splits)]
     assert all(s < k for s in starts)
     assert starts[-1] + k_chunk >= k
-    if (b, k, n) == (256, 2450, 500):          # fc_0: 32 tiles x 9 splits
-        assert (splits, k_chunk) == (9, 288)
+    if (b, k, n) == (256, 2450, 500):          # fc_0: 32 tiles x 4 splits
+        assert (splits, k_chunk) == (4, 640)
 
 
 def test_queue_noise_checks_shape_and_order():
