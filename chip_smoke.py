@@ -123,11 +123,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 494.7e12     # dense TF32 tensor-core operations/s
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core operations/s
-# fp32 operations per drawn code: the quantise chain of draw_code in the
-# kernel (26: two dequants, the noise quantise, the quantised multiply and
-# add, the clips and the convert) plus 4 for the Box-Muller normal
-# amortised over its pair (the Philox integer rounds are not counted).
-OPS_PER_CODE = 30
+# int32 lane operations/s: 132 SMs x 64 int32 lanes (NVIDIA Hopper
+# architecture white paper) at the 1.98 GHz boost clock of the fp32 peak
+# above (132 x 128 lanes x 2 x 1.98 GHz = 67 TFLOP/s).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The seeded draw's work per code: Philox-4x32-10 gives 4 codes a call of
+# 10 rounds, each two 32 x 32 -> 64-bit products (a high and a low
+# multiply each) and four XORs: 80 int32 operations a call, 20 a code.
+# Then the quantise chain from eps_q: eps_q * 3/127, two multiplies, a
+# round, + zero point, two clips, - zero point, a multiply, + w_f, a
+# multiply, a round, + zero point, two clips (the int8 and the weight
+# range, merged) and the convert: 17 fp32 operations. The dequantised
+# mean and std are per element, not per code, and not counted.
+PHILOX_INT_OPS_PER_CODE = 20
+CHAIN_FP32_OPS_PER_CODE = 17
 
 
 def check(cond, msg):
@@ -198,6 +207,31 @@ def plain_draw(layers, noise):
             for (w, s, qp, lo, hi), e in zip(layers, noise)]
 
 
+def plain_seeded(layers, samples, seed, offset, dev):
+    """The seeded draw's plain version: torch Philox, the inverse-CDF
+    transform and the quantise chain, layer by layer."""
+    return [sw.sample_weights_plain(
+        w, s, qp, sw.seeded_noise(seed, offset, i,
+                                  (samples,) + tuple(w.shape), dev), lo, hi)
+            for i, (w, s, qp, lo, hi) in enumerate(layers)]
+
+
+def _max_code_diff(got, want, what):
+    err = 0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == torch.int8,
+              f"{what}: shape/dtype {a.shape} {a.dtype}")
+        err = max(err, int((a.to(torch.int32) - b.to(torch.int32)).abs()
+                           .max()))
+    check(err == 0, f"{what}: kernel differs from plain by {err} codes")
+    return err
+
+
+def _cpu_layers(layers):
+    return [(w.cpu(), s.cpu(), {k: v.cpu() for k, v in qp.items()}, lo, hi)
+            for (w, s, qp, lo, hi) in layers]
+
+
 def phase_kernel(state, plan, samples, seed, dev):
     """Kernel against plain: returns the largest code difference seen."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -206,21 +240,15 @@ def phase_kernel(state, plan, samples, seed, dev):
     noise = [torch.randn((samples,) + tuple(w.shape), generator=g,
                          device=dev) for (w, *_r) in layers]
     got = sw.draw_layers(pack, noise=noise)
-    want = plain_draw(layers, noise)
-    max_err = 0
-    for (path, _lo, _hi), a, b in zip(plan, got, want):
-        check(a.shape == b.shape and a.dtype == torch.int8,
-              f"{path}: shape/dtype {a.shape} {a.dtype}")
-        err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-        max_err = max(max_err, err)
-        check(err == 0, f"{path}: kernel differs from plain by {err} codes")
+    max_err = _max_code_diff(got, plain_draw(layers, noise),
+                             "flagship, explicit noise")
     n_codes = sum(a.numel() for a in got)
     print(f"explicit noise: {len(got)} layers, {n_codes} codes, "
           f"max |kernel - plain| = {max_err}")
     check(n_codes == samples * 1571592, f"code count {n_codes}")
 
     # draw_all_layers's case: a pack with a layer over 1024 rows of 512
-    # lanes (LeNet fc1, 2450 x 500) beside flagship layers
+    # lanes (LeNet fc1, 2450 x 500, n % 16 == 8) beside flagship layers
     w_big = torch.randint(-128, 128, (2450, 500), generator=g, device=dev,
                           dtype=torch.int8)
     s_big = torch.randint(-128, 128, (2450, 500), generator=g, device=dev,
@@ -230,20 +258,43 @@ def phase_kernel(state, plan, samples, seed, dev):
     noise_m = [torch.randn((samples,) + tuple(l[0].shape), generator=g,
                            device=dev) for l in mixed]
     got_m = sw.draw_layers(sw.pack_layers(mixed, samples), noise=noise_m)
-    for a, b in zip(got_m, plain_draw(mixed, noise_m)):
-        err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-        max_err = max(max_err, err)
-        check(err == 0, f"mixed pack: kernel differs by {err} codes")
+    max_err = max(max_err, _max_code_diff(got_m, plain_draw(mixed, noise_m),
+                                          "mixed pack, explicit noise"))
     print("pack with a 2393-row layer (w_lo/w_hi -8/7): bitwise equal")
+    del got, got_m, noise, noise_m
 
-    # Philox mode: the kernel's codes against the plain version fed
-    # torch.randn. The means are shared, only the noise differs, so the
-    # histograms of two honest draws differ by sampling noise alone:
-    # E[TV] <= 0.5 * sqrt(2 * K / N) for K occupied codes and N draws;
-    # the bound is three times that.
+    # seeded (qbn_tpu's inverse-CDF normals from Philox bits): bitwise
+    # against the plain version given the same seed and offset
+    for name, lay in (("flagship", layers), ("mixed pack", mixed)):
+        gen = torch.Generator().manual_seed(seed + 1)
+        sd, off = sw.seed_offset(torch.Generator().manual_seed(seed + 1))
+        got_p = sw.draw_layers(sw.pack_layers(lay, samples), generator=gen)
+        max_err = max(max_err, _max_code_diff(
+            got_p, plain_seeded(lay, samples, sd, off, dev),
+            f"{name}, seeded"))
+        print(f"seeded {name}: {sum(a.numel() for a in got_p)} codes, "
+              "kernel == plain (torch Philox + inverse CDF), bitwise")
+        del got_p
+        # the card's codes against the CPU's for the same seed and offset
+        # (S = 2: the CPU runs the plain version)
+        cpu = [sw.draw_layers(sw.pack_layers(ls, 2),
+                              torch.Generator().manual_seed(seed + 2))
+               for ls in (lay, _cpu_layers(lay))]
+        max_err = max(max_err, _max_code_diff(
+            [a.cpu() for a in cpu[0]], cpu[1], f"{name}, card vs CPU"))
+        print(f"seeded {name}: card == CPU at S=2, bitwise")
+
+    # The seeded codes against the plain version fed torch.randn: the means
+    # are shared, only the noise differs, so the histograms of two honest
+    # draws differ by sampling noise and the inverse-CDF law's own distance
+    # from the quantised normal (TV 0.00015): E[TV] <= 0.5 sqrt(2 K / N)
+    # for K occupied codes and N draws; the bound is three times that.
     gen = torch.Generator().manual_seed(seed + 1)
     got_p = sw.draw_layers(pack, generator=gen)
-    ref_p = plain_draw(layers, [torch.randn_like(e) for e in noise])
+    g2 = torch.Generator(device=dev).manual_seed(seed + 3)
+    ref_p = plain_draw(layers, [torch.randn((samples,) + tuple(w.shape),
+                                            generator=g2, device=dev)
+                                for (w, *_r) in layers])
     worst = 0.0
     for (path, _lo, _hi), a, b in zip(plan, got_p, ref_p):
         ha = torch.bincount(a.reshape(-1).to(torch.int64) + 128,
@@ -256,11 +307,13 @@ def phase_kernel(state, plan, samples, seed, dev):
         bound = 3 * 0.5 * math.sqrt(2 * k / n)
         worst = max(worst, tv / bound)
         check(tv <= bound, f"{path}: code histogram TV {tv:.5f} > {bound:.5f}")
-    print(f"philox codes vs plain+randn: worst TV / bound = {worst:.3f}")
+    print(f"seeded codes vs plain+randn: worst TV / bound = {worst:.3f}")
+    del got_p, ref_p
 
     # The kernel's own normals: with unit qparams the code IS eps_q =
     # clip(round(eps * 127/3), -128, 127). 10^7 of them against the exact
-    # law of a quantised, clipped N(0, 1).
+    # law of the inverse-CDF transform (the share of the 2^23 uniforms on
+    # each code, from its table).
     ns = 3.0 / 127.0
     one = {"w_scale": 1.0, "w_zp": 0.0, "std_scale": 1.0, "std_zp": 0.0,
            "mul_scale": ns, "mul_zp": 0.0, "add_scale": ns, "add_zp": 0.0}
@@ -273,13 +326,7 @@ def phase_kernel(state, plan, samples, seed, dev):
                                 generator=gen).to(torch.float64)
     n = eq.numel()
     ks = torch.arange(-128, 128, dtype=torch.float64)
-    cdf = lambda z: 0.5 * (1 + torch.erf(z / math.sqrt(2)))  # noqa: E731
-    hi = torch.where(ks == 127, torch.tensor(math.inf, dtype=torch.float64),
-                     (ks + 0.5) * ns)
-    lo = torch.where(ks == -128, torch.tensor(-math.inf,
-                                              dtype=torch.float64),
-                     (ks - 0.5) * ns)
-    p = cdf(hi) - cdf(lo)
+    p = sw.eps_q_law()
     mean_exp = float((p * ks * ns).sum())
     std_exp = math.sqrt(float((p * (ks * ns - mean_exp) ** 2).sum()))
     x = eq * ns
@@ -295,7 +342,7 @@ def phase_kernel(state, plan, samples, seed, dev):
                        minlength=256).double() / n
     tv = 0.5 * float((h - p).abs().sum())
     tv_bound = 3 * 0.5 * math.sqrt(2 * int((p > 1e-9).sum()) / n)
-    print(f"kernel eps histogram TV vs exact law {tv:.6f} "
+    print(f"kernel eps histogram TV vs the inverse-CDF law {tv:.6f} "
           f"(bound {tv_bound:.6f})")
     check(tv <= tv_bound, "kernel eps histogram")
     # draws of neighbouring elements and neighbouring samples uncorrelated
@@ -685,30 +732,33 @@ def phase_times(state, plan, samples, seed):
     layers = plan_layers(state, plan)
     pack = sw.pack_layers(layers, samples)
     gen = torch.Generator().manual_seed(seed)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    shapes = [(samples,) + tuple(w.shape) for (w, *_r) in layers]
+    sd, off = sw.seed_offset(torch.Generator().manual_seed(seed + 9))
 
     def plain():
-        plain_draw(layers, [torch.randn(s, generator=g, device=dev)
-                            for s in shapes])
+        plain_seeded(layers, samples, sd, off, dev)
 
     def kernel():
         sw.draw_layers(pack, generator=gen)
 
     codes = samples * sum(w.numel() for (w, *_r) in layers)
-    in_bytes = 2 * pack.w.numel() + 4 * pack.qtab.numel() \
-        + 8 * pack.meta.numel()
+    in_bytes = 2 * sum(w.numel() for (w, *_r) in layers) \
+        + 4 * pack.qtab.numel() + 8 * pack.meta.numel()
     bytes_ms = 1e3 * (codes + in_bytes) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * codes * OPS_PER_CODE / FP32_OPS_PER_S
+    int_ms = 1e3 * codes * PHILOX_INT_OPS_PER_CODE / INT32_OPS_PER_S
+    fp_ms = 1e3 * codes * CHAIN_FP32_OPS_PER_CODE / FP32_OPS_PER_S
+    ops_ms = max(int_ms, fp_ms)       # the two pipes run side by side
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     # turns: plain, kernel, kernel, plain
-    t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
+    t = [cuda_ms(plain, iters=3, warmup=1), cuda_ms(kernel),
+         cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1)]
     plain_ms, ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    print(f"draw S={samples}, {len(layers)} layers, {codes} codes: kernel "
-          f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f} ms, ops "
-          f"{ops_ms:.4f} ms)")
+    print(f"draw S={samples}, {len(layers)} layers, {codes} codes, seeded: "
+          f"kernel {t[1]:.4f}/{t[2]:.4f} ms, plain (torch Philox + inverse "
+          f"CDF + chain) {t[0]:.3f}/{t[3]:.3f} ms, bound {bound_ms:.4f} ms "
+          f"by {bound_by} (bytes {bytes_ms:.4f} ms; int32 Philox "
+          f"{int_ms:.4f} ms, fp32 chain {fp_ms:.4f} ms), kernel at "
+          f"{bound_ms / ms:.1%} of its bound")
     return ms, plain_ms, bound_ms, bound_by
 
 

@@ -4,7 +4,8 @@ Given the same float32 noise, `sample_weights_plain` must give bitwise the
 codes of `sample_weights_oracle` (integers out of the same float32 chain:
 no tolerance). The CUDA kernel runs only on the card (chip_smoke.py holds
 it against the plain version there); here a numpy emulation of its
-thread -> (layer, sample, element) mapping checks the pack layout.
+thread -> (layer, sample, element) mapping checks the pack layout, with
+explicit noise and with its seeded counters and eps_q table.
 """
 
 import os
@@ -109,38 +110,66 @@ def _layers(rng, shapes, device="cpu"):
 SHAPES = [(3, 3, 3, 24), (1, 1, 5, 7), (192, 10), (2450, 500)]
 
 
-def _emulate_kernel(pack, noise):
-    """The kernel's index arithmetic, thread by thread, in numpy: layer
-    search over chunk starts, e0 = 16 * local thread, element index
-    i = e0 % n wrapping at n, outputs at dst + e0 .. dst + e0 + count."""
+def _kernel_outputs(pack):
+    """The kernel's work, thread by thread, in numpy: tile t of _TILE
+    items belongs to layer tile_layer[t], its thread x takes item
+    (t - tile0) * _TILE + x; where n % 16 == 0 item sg * n/16 + j covers
+    elements 16 j .. 16 j + 15 of samples 4 sg .. 4 sg + 3, else 16
+    consecutive outputs of the (S, n) block. Returns per layer the block
+    index e of every output written."""
     meta = pack.meta.numpy()
+    tile_layer = pack.tile_layer.numpy()
+    out = []
+    for li, (tile0, items, _dst, _src, n, s, _lo, _hi) in enumerate(meta):
+        tiles = np.nonzero(tile_layer == li)[0]
+        assert (tiles == tile0 + np.arange(-(-items // sw._TILE))).all()
+        item = (tiles[:, None] - tile0) * sw._TILE + np.arange(sw._TILE)
+        item = item.reshape(-1)
+        item = item[item < items]
+        lane = np.arange(16)
+        if n % 16 == 0:
+            sg, j = np.divmod(item, n // 16)
+            smp = sg[:, None] * sw._SAMPLES_PER_ITEM + np.arange(
+                sw._SAMPLES_PER_ITEM)
+            e = (smp[:, :, None] * n + 16 * j[:, None, None] + lane)
+            e = e[np.broadcast_to(smp[:, :, None] < s, e.shape)]
+        else:
+            e = (16 * item[:, None] + lane).reshape(-1)
+            e = e[e < s * n]
+        out.append(e)
+    return out
+
+
+def _emulate_kernel(pack, noise=None, seed_offset=None):
+    """The kernel's output buffer, from _kernel_outputs and the plain chain:
+    with explicit noise read at dst + e, or seeded: the Philox bits of
+    counter (e // 4, layer, offset) lane e % 4, eps_q through the table."""
     qtab = pack.qtab.numpy()
     w, std = pack.w.numpy(), pack.std.numpy()
-    s = pack.samples
     out = np.zeros(pack.total, np.int8)
-    flat_noise = np.zeros(pack.total, np.float32)
-    for t_, d in zip(noise, pack.dst):
-        flat_noise[d:d + t_.numel()] = t_.reshape(-1).numpy()
-    t = np.arange(pack.chunks)
-    layer = (meta[None, :, 0] <= t[:, None]).sum(1) - 1
-    for k in range(16):
-        m = meta[layer]
-        n = m[:, 3]
-        e = (t - m[:, 0]) * 16 + k
-        valid = e < s * n
-        l_v, e_v, m_v = layer[valid], e[valid], m[valid]
-        i = e_v % m_v[:, 3]
-        src = m_v[:, 2] + i
-        dst = m_v[:, 1] + e_v
-        for li in np.unique(l_v):
-            sel = l_v == li
-            q = qtab[li]
-            qp = {key: torch.tensor(np.float32(q[j]))
-                  for j, key in enumerate(QP_KEYS)}
-            out[dst[sel]] = sw.sample_weights_plain(
-                torch.from_numpy(w[src[sel]]), torch.from_numpy(std[src[sel]]),
-                qp, torch.from_numpy(flat_noise[dst[sel]]), int(q[8]),
-                int(q[9])).numpy()
+    table = sw.icdf_table("cpu")
+    for li, e in enumerate(_kernel_outputs(pack)):
+        _t0, _it, dst, src, n, s, lo, hi = pack.meta[li].tolist()
+        assert np.array_equal(np.sort(e), np.arange(s * n))   # once each
+        if noise is not None:
+            eps = torch.from_numpy(noise[li].reshape(-1).numpy()[e])
+        else:
+            seed, offset = seed_offset
+            et = torch.from_numpy(e)
+            words = sw.philox4x32(
+                (et >> 2, li, offset & 0xFFFFFFFF, offset >> 32),
+                (seed & 0xFFFFFFFF, seed >> 32))
+            bits = torch.stack([torch.as_tensor(x).expand(et.shape)
+                                for x in words], 1)
+            bits = bits.gather(1, (et & 3)[:, None])[:, 0]
+            eps = sw.lookup_eps_q(bits, table) * torch.tensor(
+                sw.NOISE_SCALE, dtype=torch.float32)
+        i = e % n
+        qp = {key: torch.tensor(qtab[li, j]) for j, key in
+              enumerate(QP_KEYS)}
+        out[dst + e] = sw.sample_weights_plain(
+            torch.from_numpy(w[src + i]), torch.from_numpy(std[src + i]), qp,
+            eps, lo, hi).numpy()
     return out
 
 
@@ -151,7 +180,8 @@ def test_pack_layout_and_kernel_mapping():
     pack = sw.pack_layers(layers, s)
     assert all(d % 16 == 0 for d in pack.dst)
     assert pack.total % 16 == 0
-    assert pack.chunks * 16 == pack.total
+    assert all(r[3] % 16 == 0 for r in pack.meta.tolist())   # code starts
+    assert pack.tiles == len(pack.tile_layer)
     noise = [torch.from_numpy(rng.standard_normal((s,) + sh)
                               .astype(np.float32)) for sh in SHAPES]
     expect = [sw.sample_weights_plain(w, st, qp, e, lo, hi)
@@ -163,6 +193,13 @@ def test_pack_layout_and_kernel_mapping():
         np.testing.assert_array_equal(g.numpy(), e.numpy())
         np.testing.assert_array_equal(
             emu[d:d + e.numel()].reshape(e.shape), e.numpy())
+    # seeded: the kernel's counters and table give the CPU's codes
+    gen = torch.Generator().manual_seed(12)
+    emu = _emulate_kernel(pack, seed_offset=sw.seed_offset(gen))
+    got = sw.draw_layers(pack, torch.Generator().manual_seed(12))
+    for g, d in zip(got, pack.dst):
+        np.testing.assert_array_equal(
+            emu[d:d + g.numel()].reshape(g.shape), g.numpy())
     # the largest layer is over 1024 rows of 512 lanes, as in LeNet fc1
     assert -(-2450 * 500 // 512) > 1024
 
