@@ -15,15 +15,20 @@ its seconds:
   2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
               csrc/int_conv.cu, one process each, started together, with
               their register/spill reports
-  3. kernel   the posterior-draw kernel against its plain PyTorch version:
-              bitwise with explicit noise at all 21 flagship layers (S=100)
-              and on a pack holding a layer over 1024 rows of 512; with its
-              own Philox normals, code histograms against the plain version
-              fed torch.randn, and the moments of 10^7 of its normals
+  3. kernel   the posterior-draw kernel against its plain PyTorch version,
+              bitwise, at all 21 flagship layers (S=100) and on a pack
+              holding a layer over 1024 rows of 512: with explicit noise,
+              and seeded (qbn_tpu's inverse-CDF normals from Philox bits:
+              the plain version is torch Philox + the transform), the
+              card's seeded codes against the CPU's; code histograms
+              against the plain version fed torch.randn, and the moments
+              and histogram of 10^7 of its normals against the inverse-CDF
+              law
   4. int_conv the int8 conv kernel against its plain version at every conv
               shape of the net at B=256, S=100, bitwise, on the body the
-              shape's plan takes (printed) and, at the 3x3 shapes, again
-              on the im2col body: its raw int32 sums (equal to
+              shape's plan takes (printed) and, where that is the halo or
+              the pixel body, again on the im2col body: its raw int32
+              sums (equal to
               float64 convs, and to int64 window sums at sampled
               outputs), its codes with relu off and on, a_hi 127, 63 and
               3, the residual epilogue, the per-sample layout, and K=1728
@@ -31,7 +36,7 @@ its seconds:
   5. main     `evaluate` on the checkpoint (read by the port's own reader),
               the draw kernel's launches (1 per batch) and the conv
               kernel's (20 per batch: 16 on the halo body, 4 on the
-              im2col body), the kernel path against the plain
+              pixel body), the kernel path against the plain
               path with the same explicit noise (each of a forward's 20
               convs against its plain version on the recorded inputs, and
               identical int8 codes at every up_to cut), and the card
@@ -53,8 +58,10 @@ its seconds:
  10. times    each kernel against its plain version and its bound, in
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
-              against the float64 cuDNN conv alone and, at the 3x3
-              shapes, the im2col body)
+              against the float64 cuDNN conv alone and, at every shape
+              that takes the halo or the pixel body, the im2col body; the
+              draw kernel against its bound restated with the Philox
+              integer work)
 
 Any failed check raises and the run exits non-zero. The last lines are a
 `{"kernels": [...]}` JSON object and `{"ok": true, "device": {...}}`.
@@ -437,9 +444,16 @@ def _codes_err(a, b, what):
 
 def describe_plan(plan):
     """One line for the design a conv shape takes, and why."""
-    if plan.design != "halo":
+    if plan.design == "im2col":
         return (f"design im2col ({plan.reason}): {plan.bm} pixels x "
                 f"{plan.bn} channels per CTA")
+    if plan.design == "pixel":
+        src = ("the im2col tile gathered once" if plan.vx == 0 else
+               f"each group's input runs in {plan.vx}-byte copies")
+        return (f"design pixel ({plan.reason}): {plan.bm} pixels x "
+                f"{plan.bn} channels per CTA over groups of up to "
+                f"{plan.sg} samples, {src}, A rows of {plan.pitch} bytes, "
+                f"{plan.smem_bytes} bytes of shared memory")
     tile = (f"{plan.rows} output rows" if plan.n_img == 1 else
             f"{plan.n_img} whole images")
     ring = ("all of K in one chunk" if plan.ring == 1 else
@@ -475,8 +489,8 @@ def phase_int_conv(batch, samples, seed, dev):
         res = torch.randint(-60, 60, (batch, hw // stride, hw // stride,
                                       samples * cout), generator=g,
                             device=dev, dtype=torch.int8)
-        # every check on the shape's design and, where that is the halo
-        # body, again on the im2col body
+        # every check on the shape's design and, where that is not the
+        # im2col body, again on the im2col body
         for design in dict.fromkeys((plan.design, "im2col")):
             acc, win = ic.int_conv_sums(x, w, st, pads, shared,
                                         _design=design)
@@ -601,7 +615,7 @@ def phase_main(seed, state, model, plan, dev):
 
     gen = torch.Generator().manual_seed(seed)
     sw.launches = ic.launches = 0
-    ic.launches_by_design.update(halo=0, im2col=0)
+    ic.launches_by_design.update(halo=0, pixel=0, im2col=0)
     metric_state, probs, seconds = evaluate(model, state, batches(),
                                             SAMPLES, gen, dev)
     launches, conv_launches = sw.launches, ic.launches
@@ -613,8 +627,8 @@ def phase_main(seed, state, model, plan, dev):
     check(conv_launches == CONVS_PER_BATCH * BATCHES,
           f"conv launches {conv_launches} in {BATCHES} batches")
     check(by_design == {"halo": HALO_PER_BATCH * BATCHES,
-                        "im2col": (CONVS_PER_BATCH - HALO_PER_BATCH)
-                        * BATCHES},
+                        "pixel": (CONVS_PER_BATCH - HALO_PER_BATCH)
+                        * BATCHES, "im2col": 0},
           f"conv launches by design {by_design} in {BATCHES} batches")
     es = BATCH * SAMPLES
     for i, (p, dt) in enumerate(zip(probs, seconds)):
@@ -807,7 +821,7 @@ def phase_conv_times(seed):
 
         # turns: plain, f64, kernel[, im2col body twice], kernel, f64,
         # plain
-        both = plan.design == "halo"
+        both = plan.design != "im2col"
         runs = [(plain, 3), (f64, 3), (kernel, 20)] + (
             [(im2col, 20), (im2col, 20)] if both else []) + [
             (kernel, 20), (f64, 3), (plain, 3)]

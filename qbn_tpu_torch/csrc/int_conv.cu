@@ -33,11 +33,11 @@
 // outside the image read code 0, the activation zero point, which adds
 // nothing to the sum or the window sum. Offsets are 64-bit.
 //
-// Two bodies, chosen by shape in ops/int_conv.py (plan_conv), never on
-// failure; both end in the same epilogue (conv_epilogue below).
+// Three bodies, chosen by shape in ops/int_conv.py (plan_conv), never on
+// failure; all compute each code with the same epilogue (epi_code and
+// res_code below).
 //
-// "im2col" (the stem, the 1x1/2 shortcuts, any shape the other does not
-// take). One CTA of 256 threads (8 warps) computes 128 output pixels x up
+// "im2col" (any shape the other two do not take). One CTA of 256 threads (8 warps) computes 128 output pixels x up
 // to 96 output channels of one sample; consecutive CTAs take consecutive
 // samples, so the CTAs in flight read and write whole runs of the merged
 // layout's S*C bytes per pixel. Per step of K = 32 it gathers the im2col
@@ -74,6 +74,19 @@
 // each: 256 pixels) at NT = 3 and 6, and 4 x 2 (two m16 tiles, six n8
 // tiles: 128 pixels) at NT = 12.
 //
+// "pixel" (the shared-input stem, K = 27, and the 1x1/2 shortcuts). One
+// sample per CTA, as the other bodies run, makes 100 CTAs gather the same
+// stem tile and write 24- to 96-byte pieces of each pixel's run of
+// S * cout bytes. Here a CTA owns 128 output pixels and up to 96 channels
+// and walks over its samples in groups (the sample range is split over
+// CTAs only where the pixel tiles alone leave SMs idle). The stem's im2col
+// tile, its A fragments and window sums are taken once for all samples; a
+// 1x1 conv's input codes of a group (cin bytes per sample, consecutive in
+// the merged layout) are copied once by cp.async. The group's weights are
+// read in 4-byte words and transposed into shared memory, zero past K;
+// each sample's codes go to a staging buffer, and the CTA writes every
+// pixel's run of the group in 8- or 16-byte pieces.
+//
 // What bounds it on an H100: the bytes. The 20 convs of the flagship
 // ResNet-18 at B = 256, S = 100 do 2.01 T int8 multiply-adds (4.02 T
 // operations, 2.03 ms at 1,979 TOPS) and must move 11.60 GB (the input
@@ -84,7 +97,9 @@
 // the loads of its K loop: its mma.sync products (wgmma is a later
 // change), the requantisation epilogue's instructions (an IEEE division
 // per code, kept for bitwise codes) and, at stage 0, the 24-byte sample
-// runs of the merged layout (PERF.md).
+// runs of the merged layout (PERF.md). The stem writes 629 M codes a
+// batch: on the pixel body the epilogue's instructions, about 35 a code,
+// set its pace, not its 0.19 ms of bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,6 +144,8 @@ struct QbnConvArgs {
   long long halo, bm, nt, mt, wn, n_img, rows, h_in, w_in, pitch, vx, kc;
   long long ring;
   long long smem;
+  // the pixel body: samples per group and per CTA, output store width
+  long long pixel, sg, s_cta, vo;
 };
 
 namespace {
@@ -193,7 +210,66 @@ __device__ __forceinline__ void row_offsets(const QbnConvArgs& a,
   }
 }
 
-// The epilogue of both bodies. The 8 warps are (8 / WN) x WN: warp w's MT
+// The epilogue's scalars, read once per CTA.
+struct Epi {
+  float scale, zw_f, out_scale, zp, lo, hi;
+  int zw;
+  bool relu, centered, has_bias;
+};
+
+__device__ __forceinline__ Epi load_epi(const QbnConvArgs& a, int K) {
+  Epi p;
+  p.scale = __fmul_rn(*a.x_scale, *a.w_scale);
+  p.zw = *a.w_zp;
+  p.zw_f = (float)p.zw;
+  p.out_scale = *a.out_scale;
+  p.zp = (float)*a.out_zp;
+  p.lo = (float)a.a_lo;
+  p.hi = (float)a.a_hi;
+  p.relu = a.relu != 0;
+  p.centered = K <= kCenteredK;
+  p.has_bias = a.bias != nullptr;
+  return p;
+}
+
+// One output code from the int32 sum, the window sum and the channel's
+// bias (read only with has_bias).
+__device__ __forceinline__ int8_t epi_code(const Epi& p, int acc, int ws,
+                                           float bias) {
+  float y = p.centered
+      ? __int2float_rn(acc - p.zw * ws)
+      : __fsub_rn(__int2float_rn(acc), __fmul_rn(p.zw_f, __int2float_rn(ws)));
+  y = __fmul_rn(y, p.scale);
+  if (p.has_bias) y = __fadd_rn(y, bias);
+  return (int8_t)(int)requant(y, p.out_scale, p.zp, p.relu, p.lo, p.hi);
+}
+
+// The residual epilogue's scalars and its code: requant(out * out_scale +
+// res * res_scale) on the res_out grid.
+struct Res {
+  float o_scale, r_scale, ro_scale, ro_zp;
+  bool relu;
+};
+
+__device__ __forceinline__ Res load_res(const QbnConvArgs& a) {
+  Res p = {0.f, 0.f, 1.f, 0.f, a.res_relu != 0};
+  if (a.res != nullptr) {
+    p.o_scale = *a.out_scale;
+    p.r_scale = *a.res_scale;
+    p.ro_scale = *a.res_out_scale;
+    p.ro_zp = (float)*a.res_out_zp;
+  }
+  return p;
+}
+
+__device__ __forceinline__ int8_t res_code(const Res& p, int8_t c, int8_t r,
+                                           float lo, float hi) {
+  const float y = __fadd_rn(__fmul_rn((float)c, p.o_scale),
+                            __fmul_rn((float)r, p.r_scale));
+  return (int8_t)(int)requant(y, p.ro_scale, p.ro_zp, p.relu, lo, hi);
+}
+
+// The epilogue of the halo and im2col bodies. The 8 warps are (8 / WN) x WN: warp w's MT
 // m16 tiles are rows 16 MT (w / WN) + 16 i + g (+ 8), its NTW n8 tiles
 // columns n0 + 8 NTW (w % WN) + 8 j + 2 t (+ 1); rowsum and out_off are
 // visible to the CTA. Requantises into Os (BM x 8 NTW WN codes), then the
@@ -231,13 +307,7 @@ __device__ __forceinline__ void conv_epilogue(
     return;
   }
 
-  const float scale = __fmul_rn(*a.x_scale, *a.w_scale);
-  const int zw = *a.w_zp;
-  const float zw_f = (float)zw;
-  const float out_scale = *a.out_scale;
-  const float zp = (float)*a.out_zp;
-  const float lo = (float)a.a_lo, hi = (float)a.a_hi;
-  const bool relu = a.relu != 0, centered = K <= kCenteredK;
+  const Epi p = load_epi(a, K);
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -247,29 +317,16 @@ __device__ __forceinline__ void conv_epilogue(
         const int r = r0 + 16 * i + 8 * (e >> 1);
         const int nl = c0 + j * 8 + 2 * t + (e & 1);
         const int n = n0 + nl;
-        const int ws = rowsum[r];
-        float y = centered
-            ? __int2float_rn(acc[i][j][e] - zw * ws)
-            : __fsub_rn(__int2float_rn(acc[i][j][e]),
-                        __fmul_rn(zw_f, __int2float_rn(ws)));
-        y = __fmul_rn(y, scale);
-        if (a.bias != nullptr && n < cout)
-          y = __fadd_rn(y, __ldg(a.bias + n));
-        Os[r * BN + nl] = (int8_t)(int)requant(y, out_scale, zp, relu, lo, hi);
+        const float bias =
+            p.has_bias && n < cout ? __ldg(a.bias + n) : 0.0f;
+        Os[r * BN + nl] = epi_code(p, acc[i][j][e], rowsum[r], bias);
       }
     }
   }
   __syncthreads();
 
   const bool has_res = a.res != nullptr;
-  float o_scale = 0.f, r_scale = 0.f, ro_scale = 1.f, ro_zp = 0.f;
-  if (has_res) {
-    o_scale = out_scale;
-    r_scale = *a.res_scale;
-    ro_scale = *a.res_out_scale;
-    ro_zp = (float)*a.res_out_zp;
-  }
-  const bool res_relu = a.res_relu != 0;
+  const Res rp = load_res(a);
   const int ncols = min(BN, cout - n0);
   if (a.vec_out) {   // ncols % 4 == 0, 4-byte aligned runs
     // words per row: a constant (a cheap division) when all BN columns
@@ -288,11 +345,8 @@ __device__ __forceinline__ void conv_epilogue(
         uint32_t nv = 0;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float y = __fadd_rn(
-              __fmul_rn((float)(int8_t)(v >> (8 * e)), o_scale),
-              __fmul_rn((float)(int8_t)(rv >> (8 * e)), r_scale));
-          const int8_t c =
-              (int8_t)(int)requant(y, ro_scale, ro_zp, res_relu, lo, hi);
+          const int8_t c = res_code(rp, (int8_t)(v >> (8 * e)),
+                                    (int8_t)(rv >> (8 * e)), p.lo, p.hi);
           nv |= (uint32_t)(uint8_t)c << (8 * e);
         }
         v = nv;
@@ -306,11 +360,7 @@ __device__ __forceinline__ void conv_epilogue(
       if (off < 0) continue;
       const long long o = off + n0 + nl;
       int8_t c = Os[r * BN + nl];
-      if (has_res) {
-        const float y = __fadd_rn(__fmul_rn((float)c, o_scale),
-                                  __fmul_rn((float)a.res[o], r_scale));
-        c = (int8_t)(int)requant(y, ro_scale, ro_zp, res_relu, lo, hi);
-      }
+      if (has_res) c = res_code(rp, c, a.res[o], p.lo, p.hi);
       a.out[o] = c;
     }
   }
@@ -726,6 +776,312 @@ int_conv_halo_kernel(const QbnConvArgs a) {
                              K);
 }
 
+// -- the pixel body -------------------------------------------------------
+
+// The codes of one group, staged [pixel][sample][BN] at spitch bytes a
+// pixel, to the output in pieces of V bytes (V divides BN and every output
+// stride; 1 where no wider piece is aligned): a pixel's run of the group
+// is contiguous in the merged layout,
+// so consecutive threads write consecutive pieces. The residual epilogue,
+// where asked, runs on each piece.
+template <int V>
+__device__ __forceinline__ void copy_out(const QbnConvArgs& a,
+                                         const int8_t* St, int spitch,
+                                         const long long* out_off, int s0,
+                                         int ng, int n0, int BN, int BM,
+                                         const Res& rp, float lo, float hi) {
+  const int per_s = BN / V, per_row = ng * per_s;
+  const bool has_res = a.res != nullptr;
+  for (int idx = threadIdx.x; idx < BM * per_row; idx += kThreads) {
+    const int r = idx / per_row, rem = idx - r * per_row;
+    const int sl = rem / per_s, q = rem - sl * per_s;
+    const long long off = out_off[r];
+    if (off < 0) continue;
+    const long long o = off + (long long)(s0 + sl) * a.o_ss + n0 + q * V;
+    const int8_t* src = St + r * spitch + sl * BN + q * V;
+    int8_t v[V < 4 ? 4 : V];
+    if (V >= 4) {
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<uint32_t*>(v + e) =
+            *reinterpret_cast<const uint32_t*>(src + e);
+    } else {
+      v[0] = src[0];
+    }
+    if (has_res) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = res_code(rp, v[e], a.res[o + e], lo, hi);
+    }
+    if (V == 16)
+      *reinterpret_cast<uint4*>(a.out + o) = *reinterpret_cast<uint4*>(v);
+    else if (V == 8)
+      *reinterpret_cast<uint2*>(a.out + o) = *reinterpret_cast<uint2*>(v);
+    else if (V == 4)
+      *reinterpret_cast<uint32_t*>(a.out + o) =
+          *reinterpret_cast<uint32_t*>(v);
+    else
+      a.out[o] = v[0];
+  }
+}
+
+// A CTA owns kBM consecutive output pixels and BN = 8 NT channels and walks
+// over its samples (blockIdx.z * s_cta ...) in groups of sg. SHARED: the
+// stem (one image, K <= 32): the im2col tile A[pixel][k] is gathered once
+// and its fragments and window sums stay in registers for every sample.
+// Else a 1x1 conv with padding 0: per group, each pixel's input codes of
+// the group's samples (cin bytes each, consecutive in the merged layout)
+// are copied by cp.async into its A row, sample after sample, and the
+// window sums come from the A fragments. Per group the samples' weight
+// slices [K][BN] are read in 4-byte words and transposed into Bt
+// [sample][n][kp + 16], zero past K (the A bytes past a sample's cin then
+// multiply zeros). Each warp owns 16 pixels and all BN channels: per sample
+// and k step one A fragment feeds NT mma.sync m16n8k32. The codes
+// (epi_code, the other bodies' epilogue) are staged per group and written
+// by copy_out.
+template <int NT, bool SHARED>
+__global__ void __launch_bounds__(kThreads, 2)
+int_conv_pixel_kernel(const QbnConvArgs a) {
+  constexpr int BN = 8 * NT, BM = kBM;
+  extern __shared__ __align__(16) int8_t smem[];
+  const int cin = (int)a.cin, cout = (int)a.cout, S = (int)a.S;
+  const int K = (int)(a.kh * a.kw * a.cin);
+  const int kp = (K + kBK - 1) / kBK * kBK, btp = kp + 16;
+  const int sg = (int)a.sg, pitch = (int)a.pitch, spitch = sg * BN + 16;
+  // [A tile BM x pitch | Bt sg x BN x btp | staged codes BM x spitch |
+  //  rowsum | out_off | x_off]
+  int8_t* As = smem;
+  int8_t* Bt = As + BM * pitch;
+  int8_t* St = Bt + sg * BN * btp;
+  int* rowsum = reinterpret_cast<int*>(St + BM * spitch);
+  long long* out_off = reinterpret_cast<long long*>(rowsum + BM);
+  long long* x_off = out_off + BM;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int s_begin = blockIdx.z * (int)a.s_cta;
+  const int s_end = min(S, s_begin + (int)a.s_cta);
+  const long long M = a.B * a.Ho * a.Wo;
+  const long long hw_o = a.Ho * a.Wo;
+  const int Wo = (int)a.Wo, st = (int)a.stride, pad = (int)a.pad;
+  const bool raw = a.raw_acc != nullptr;
+
+  row_offsets(a, out_off, m0, 0, BM);   // each pixel's run at sample 0
+  if (!SHARED) {   // each pixel's input run: (b, ho * st, wo * st)
+    for (int r = tid; r < BM; r += kThreads) {
+      const long long m = m0 + r;
+      long long off = -1;
+      if (m < M) {
+        const long long b = m / hw_o;
+        const int rem = (int)(m - b * hw_o);
+        const int ho = rem / Wo, wo = rem - (rem / Wo) * Wo;
+        off = b * a.x_sb + (long long)(ho * st - pad) * a.x_sh +
+              (long long)(wo * st - pad) * a.x_sw;
+      }
+      x_off[r] = off;
+    }
+    __syncthreads();   // x_off, out_off visible to every thread
+  }
+
+  const Epi p = raw ? Epi{} : load_epi(a, K);   // no qparams in raw mode
+  const Res rp = load_res(a);
+  const int ra = warp * 16 + g, rb = ra + 8;
+
+  uint32_t af[4] = {0u, 0u, 0u, 0u};
+  int ws_a = 0, ws_b = 0;
+  if (SHARED) {
+    // the im2col tile: two threads a row, 16 k each, zero outside the
+    // image and past K
+    const int r = tid >> 1, kk0 = (tid & 1) * 16;
+    const long long m = m0 + r;
+    const int kw = (int)a.kw, H = (int)a.H, W = (int)a.W;
+    long long base = 0;
+    int h0 = 0, w0 = 0;
+    if (m < M) {
+      const long long b = m / hw_o;
+      const int rem = (int)(m - b * hw_o);
+      h0 = rem / Wo * st - pad;
+      w0 = (rem - (rem / Wo) * Wo) * st - pad;
+      base = b * a.x_sb;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = kk0 + 4 * q + e;
+        if (m < M && k < K) {
+          const int tap = k / cin, ci = k - (k / cin) * cin;
+          const int hi = h0 + tap / kw, wi = w0 + tap - (tap / kw) * kw;
+          if (hi >= 0 && hi < H && wi >= 0 && wi < W)
+            word |= (uint32_t)(uint8_t)a.x[base + hi * a.x_sh +
+                                           wi * a.x_sw + ci] << (8 * e);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(As + r * pitch + kk0 + 4 * q) = word;
+    }
+    __syncthreads();
+    {
+      const int* pr = reinterpret_cast<const int*>(As + r * pitch + kk0);
+      int v = __dp4a(pr[0], 0x01010101, 0);
+      v = __dp4a(pr[1], 0x01010101, v);
+      v = __dp4a(pr[2], 0x01010101, v);
+      v = __dp4a(pr[3], 0x01010101, v);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if ((tid & 1) == 0) rowsum[r] = v;
+    }
+    __syncthreads();
+    af[0] = *reinterpret_cast<const uint32_t*>(As + ra * pitch + 4 * t);
+    af[1] = *reinterpret_cast<const uint32_t*>(As + rb * pitch + 4 * t);
+    af[2] = *reinterpret_cast<const uint32_t*>(As + ra * pitch + 16 + 4 * t);
+    af[3] = *reinterpret_cast<const uint32_t*>(As + rb * pitch + 16 + 4 * t);
+    ws_a = rowsum[ra];
+    ws_b = rowsum[rb];
+  }
+
+  for (int s0 = s_begin; s0 < s_end; s0 += sg) {
+    const int ng = min(sg, s_end - s0);
+    if (!SHARED) {   // A: each pixel's cin codes of the group's samples
+      const int vx = (int)a.vx, pieces = cin / vx, per_row = ng * pieces;
+      for (int idx = tid; idx < BM * per_row; idx += kThreads) {
+        const int r = idx / per_row, rem = idx - r * per_row;
+        const int sl = rem / pieces, v = rem - sl * pieces;
+        const long long xo = x_off[r];
+        const bool in = xo >= 0;
+        const int8_t* src =
+            in ? a.x + xo + (long long)(s0 + sl) * a.x_ss + v * vx : a.x;
+        int8_t* dst = As + r * pitch + sl * cin + v * vx;
+        if (vx == 16)
+          cp_async<16>(dst, src, in);
+        else if (vx == 8)
+          cp_async<8>(dst, src, in);
+        else
+          cp_async<4>(dst, src, in);
+      }
+      cp_commit();
+    }
+    {  // Bt: the group's weight slices, transposed, zero past K
+      const int kq_n = kp / 4, nq_n = BN / 4;
+      for (int idx = tid; idx < ng * kq_n * nq_n; idx += kThreads) {
+        const int nq = idx % nq_n, rest = idx / nq_n;
+        const int kq = rest % kq_n, sl = rest / kq_n;
+        const int8_t* src =
+            a.w + (long long)(s0 + sl) * K * cout + n0 + 4 * nq;
+        uint32_t rows[4], cols[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * kq + e;
+          rows[e] = k < K ? __ldg(reinterpret_cast<const unsigned int*>(
+                                src + (long long)k * cout))
+                          : 0u;
+        }
+        transpose4(rows, cols);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          *reinterpret_cast<uint32_t*>(
+              Bt + (sl * BN + 4 * nq + e) * btp + 4 * kq) = cols[e];
+      }
+    }
+    if (!SHARED) cp_wait<0>();
+    __syncthreads();
+
+    for (int sl = 0; sl < ng; ++sl) {
+      int acc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+      const int8_t* bt = Bt + (sl * BN + g) * btp + 4 * t;
+      if (SHARED) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int8_t* bc = bt + j * 8 * btp;
+          mma_s8(acc[j], af[0], af[1], af[2], af[3],
+                 *reinterpret_cast<const uint32_t*>(bc),
+                 *reinterpret_cast<const uint32_t*>(bc + 16));
+        }
+      } else {
+        int rs0 = 0, rs1 = 0;
+        const int8_t* ar = As + ra * pitch + sl * cin + 4 * t;
+        const int8_t* br = As + rb * pitch + sl * cin + 4 * t;
+        for (int k0 = 0; k0 < kp; k0 += kBK) {
+          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ar + k0);
+          const uint32_t a1 = *reinterpret_cast<const uint32_t*>(br + k0);
+          const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ar + k0 + 16);
+          const uint32_t a3 = *reinterpret_cast<const uint32_t*>(br + k0 + 16);
+          const int one0 = k0 + 4 * t < K ? 0x01010101 : 0;
+          const int one1 = k0 + 16 + 4 * t < K ? 0x01010101 : 0;
+          rs0 = __dp4a((int)a0, one0, rs0);
+          rs0 = __dp4a((int)a2, one1, rs0);
+          rs1 = __dp4a((int)a1, one0, rs1);
+          rs1 = __dp4a((int)a3, one1, rs1);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int8_t* bc = bt + j * 8 * btp + k0;
+            mma_s8(acc[j], a0, a1, a2, a3,
+                   *reinterpret_cast<const uint32_t*>(bc),
+                   *reinterpret_cast<const uint32_t*>(bc + 16));
+          }
+        }
+        // the 4 lanes of a row group hold its 4 k-quads
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+        ws_a = rs0;
+        ws_b = rs1;
+      }
+
+      if (raw) {   // debug entry: the raw sums
+        const int s = s0 + sl;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const long long m = m0 + (e >> 1 ? rb : ra);
+            const int n = n0 + 8 * j + 2 * t + (e & 1);
+            if (m < M) {
+              a.raw_acc[(m * S + s) * cout + n] = acc[j][e];
+              if (n == 0) a.raw_win[m * S + s] = e >> 1 ? ws_b : ws_a;
+            }
+          }
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = sl * BN + 8 * j + 2 * t;
+        const int n = n0 + 8 * j + 2 * t;
+        const float b0 = p.has_bias ? __ldg(a.bias + n) : 0.0f;
+        const float b1 = p.has_bias ? __ldg(a.bias + n + 1) : 0.0f;
+        const uint32_t c0 = (uint8_t)epi_code(p, acc[j][0], ws_a, b0);
+        const uint32_t c1 = (uint8_t)epi_code(p, acc[j][1], ws_a, b1);
+        const uint32_t c2 = (uint8_t)epi_code(p, acc[j][2], ws_b, b0);
+        const uint32_t c3 = (uint8_t)epi_code(p, acc[j][3], ws_b, b1);
+        *reinterpret_cast<uint16_t*>(St + ra * spitch + col) =
+            (uint16_t)(c0 | (c1 << 8));
+        *reinterpret_cast<uint16_t*>(St + rb * spitch + col) =
+            (uint16_t)(c2 | (c3 << 8));
+      }
+    }
+    __syncthreads();   // the group's codes staged; A and Bt free
+    if (!raw) {
+      if (a.vo >= 16)
+        copy_out<16>(a, St, spitch, out_off, s0, ng, n0, BN, BM, rp, p.lo,
+                     p.hi);
+      else if (a.vo == 8)
+        copy_out<8>(a, St, spitch, out_off, s0, ng, n0, BN, BM, rp, p.lo,
+                    p.hi);
+      else if (a.vo == 4)
+        copy_out<4>(a, St, spitch, out_off, s0, ng, n0, BN, BM, rp, p.lo,
+                    p.hi);
+      else
+        copy_out<1>(a, St, spitch, out_off, s0, ng, n0, BN, BM, rp, p.lo,
+                    p.hi);
+    }
+  }
+}
+
 template <int NT>
 int launch(const QbnConvArgs& a, long long m_tiles, cudaStream_t stream) {
   constexpr int BN = 8 * NT;
@@ -755,6 +1111,31 @@ int launch_halo(const QbnConvArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int NT, bool SHARED>
+int launch_pixel(const QbnConvArgs& a, cudaStream_t stream) {
+  constexpr int BN = 8 * NT;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      int_conv_pixel_kernel<NT, SHARED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long m_tiles = (a.B * a.Ho * a.Wo + kBM - 1) / kBM;
+  const long long s_tiles = a.s_cta > 0 ? (a.S + a.s_cta - 1) / a.s_cta : 0;
+  const long long K = a.kh * a.kw * a.cin;
+  const bool ok_src = SHARED ? (K <= kBK && a.x_ss == 0)
+                             : (a.kh == 1 && a.kw == 1 && a.pad == 0 &&
+                                a.cin % a.vx == 0 && a.vx >= 4);
+  if (a.bm != kBM || a.cout % BN != 0 || a.sg < 1 || a.s_cta < a.sg ||
+      a.s_cta % a.sg != 0 || !ok_src || a.vo < 1 ||
+      m_tiles > 2147483647LL || a.cout / BN > 65535 || s_tiles > 65535 ||
+      a.smem > 232448)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)m_tiles, (unsigned)(a.cout / BN),
+                  (unsigned)s_tiles);
+  int_conv_pixel_kernel<NT, SHARED>
+      <<<grid, kThreads, (size_t)a.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -762,6 +1143,16 @@ extern "C" int qbn_int_conv(const QbnConvArgs* a, void* stream) {
   const long long M = a->B * a->Ho * a->Wo;
   if (M <= 0 || a->S <= 0 || a->cout <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->pixel) {   // the BN = 8 NT the plan may choose, shared x or not
+    const bool shared = a->x_ss == 0;
+    if (a->nt == 3) return shared ? launch_pixel<3, true>(*a, st)
+                                  : launch_pixel<3, false>(*a, st);
+    if (a->nt == 6) return shared ? launch_pixel<6, true>(*a, st)
+                                  : launch_pixel<6, false>(*a, st);
+    if (a->nt == 12) return shared ? launch_pixel<12, true>(*a, st)
+                                   : launch_pixel<12, false>(*a, st);
+    return (int)cudaErrorInvalidConfiguration;
+  }
   if (a->halo) {   // the (nt, mt, wn) the plan may choose
     const long long key = a->nt * 100 + a->mt * 10 + a->wn;
     if (key == 321) return launch_halo<3, 2, 1>(*a, st);

@@ -20,13 +20,19 @@ the sub-8-bit clip, - out_zp.
 On a CUDA tensor `int_conv_merged`, `mc_group_conv` and `int_conv_sums`
 launch the hand-written kernel of `csrc/int_conv.cu` (an int8 implicit
 GEMM on the tensor cores with exact int32 sums) or raise; there is no
-fallback. The kernel has two bodies, chosen by shape in `plan_conv`, never
-on failure: "halo" for the 3x3 convs with cin % 4 == 0 (the activations of
-a tile of output pixels staged once in shared memory with their halo, the
-weights streamed through an async-copy ring) and "im2col" for the rest
-(the stem, the 1x1 shortcuts: an im2col tile gathered per K step). The
-plan, with its k -> offset and pixel -> offset tables, is computed here and
-passed to the kernel, so the CPU tests check what the kernel reads. On a
+fallback. The kernel has three bodies, chosen by shape in `plan_conv`,
+never on failure: "halo" for the 3x3 convs with cin % 4 == 0 (the
+activations of a tile of output pixels staged once in shared memory with
+their halo, the weights streamed through an async-copy ring), "pixel" for
+the shared-input stem with K <= 32 and the 1x1 convs with padding 0 (a CTA
+owns a tile of output pixels and walks over the samples in groups: the
+stem's im2col tile gathered once, a 1x1 conv's input runs copied once per
+group, the group's weights transposed into shared memory, the codes
+staged so that each pixel's run is written in long pieces) and "im2col"
+for the rest (an im2col tile gathered per K step, one sample per CTA).
+The plan, with the halo body's k -> offset and pixel -> offset tables, is
+computed here and passed to the kernel, so the CPU tests check what the
+kernel reads. On a
 CPU tensor they run the plain versions beside them, whose integer sums
 come from library convolutions in float64, which holds them
 exactly (for some float32 3x3 shapes cuDNN picks an algorithm that is not
@@ -53,7 +59,7 @@ _MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
 # chip_smoke.py reads them to show that the main path went through the
 # kernel.
 launches = 0
-launches_by_design = {"halo": 0, "im2col": 0}
+launches_by_design = {"halo": 0, "pixel": 0, "im2col": 0}
 
 
 # -- the plain versions ---------------------------------------------------
@@ -233,6 +239,8 @@ _KSTEP = 32                   # contraction step: one m16n8k32
 # take 150 registers, one CTA per SM, and measured slower on the H100)
 _LAYOUTS = {3: (2, 1), 6: (2, 1), 12: (2, 2)}
 _IM2COL_BM = 128
+_PIXEL_BM = 128
+_MAX_GROUP = 32               # samples per group of the pixel body
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,6 +258,16 @@ class ConvPlan:
     chunk, all of K, where it is small; else 2). The 8 warps are
     (8 / wn) x wn: each owns 16 * mt pixels and bn / wn of the bn = 8 * nt
     channels.
+    design "pixel": a CTA owns bm = 128 output pixels and bn channels and
+    walks over the samples in groups of at most sg. Its A tile holds each
+    pixel's row at pitch bytes: the stem's im2col row (kc = 32 bytes,
+    gathered once), or a 1x1 conv's input codes of the group's samples,
+    sample after sample (cin bytes each, copied by cp.async in pieces of
+    vx bytes); the A word of pixel r, group sample j, contraction index k
+    is at r * pitch + j * cin + k (the stem: r * pitch + k). The group's
+    weights go to shared memory transposed, [sample][n][kc + 16], zero
+    past K (kc = K rounded up to 32), and its codes to a staging buffer
+    [pixel][sample][bn] before the CTA writes them.
     design "im2col": the first body, 128 pixels x 8 * nt channels per CTA,
     an im2col tile gathered from global memory per K step."""
     design: str
@@ -270,6 +288,7 @@ class ConvPlan:
     smem_bytes: int = 0
     koff: tuple = ()
     pixoff: tuple = ()
+    sg: int = 0
 
     @property
     def bn(self) -> int:
@@ -345,6 +364,43 @@ def _rings(k, bn):
         (128, 2), (64, 2), (32, 2)]
 
 
+def pixel_smem(bm, bn, kc, sg, pitch):
+    """Shared memory of the pixel body: the A tile (bm rows of pitch), the
+    group's transposed weights (sg x bn rows of kc + 16), the staged codes
+    (bm rows of sg * bn + 16), the rows' window sums and their output and
+    input offsets."""
+    return bm * pitch + sg * bn * (kc + 16) + bm * (sg * bn + 16) + 20 * bm
+
+
+def _pixel_pitch(sg, cin, kc):
+    """The A row pitch of a 1x1 conv's group: its sg runs of cin bytes and
+    room for the last one's reads up to kc, rounded up to 16 (mod 32), so
+    that the 8 rows of a fragment load fall in distinct banks."""
+    p = -(-(sg * cin + kc - cin) // 16) * 16
+    return p if p % 32 == 16 else p + 16
+
+
+def _pixel_plan(cin, cout, k, shared_x, x_align, w_align, reason):
+    """The pixel body's plan, or None where it cannot run the shape."""
+    bn = min(cout, 96)
+    if cout % bn or bn % 8 or bn // 8 not in _LAYOUTS or w_align < 4:
+        return None
+    kc = -(-k // _KSTEP) * _KSTEP
+    vx = 0
+    if not shared_x:
+        if cin % 4 or x_align < 4:
+            return None
+        vx = max(v for v in (16, 8, 4) if cin % v == 0 and v <= x_align)
+    for sg in range(_MAX_GROUP, 0, -1):
+        pitch = kc + 16 if shared_x else _pixel_pitch(sg, cin, kc)
+        smem = pixel_smem(_PIXEL_BM, bn, kc, sg, pitch)
+        if smem <= SMEM_TWO_CTAS:
+            return ConvPlan("pixel", reason, bm=_PIXEL_BM, nt=bn // 8,
+                            pitch=pitch, vx=vx, kc=kc, sg=sg,
+                            smem_bytes=smem)
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
               x_align=16, w_align=16):
@@ -358,10 +414,18 @@ def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
     bn = min(cout, 96)
     im2col = functools.partial(ConvPlan, "im2col", bm=_IM2COL_BM,
                                nt=_im2col_nt(cout))
+    if shared_x:
+        if k > _KSTEP:
+            return im2col(reason="shared input with K > 32")
+        return _pixel_plan(cin, cout, k, True, x_align, w_align,
+                           "shared input, K <= 32 (the stem)") or im2col(
+            reason=f"shared input, {cout} output channels")
+    if (kh, kw, pad) == (1, 1, 0):
+        return _pixel_plan(cin, cout, k, False, x_align, w_align,
+                           "1x1, padding 0") or im2col(
+            reason=f"1x1 with cin {cin}, {cout} output channels")
     if (kh, kw, pad) != (3, 3, 1) or stride not in (1, 2):
         return im2col(reason="not a 3x3 conv with padding 1")
-    if shared_x:
-        return im2col(reason="shared input (the stem)")
     if cin % 4 or x_align < 4:
         return im2col(reason="input rows not in 4-byte words")
     if cout % bn or bn % 8 or bn // 8 not in _LAYOUTS:
@@ -401,6 +465,23 @@ def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
     return im2col(reason="no tile fits in shared memory")
 
 
+def sample_groups(plan: ConvPlan, samples: int, tiles: int, sms: int):
+    """(sg, s_cta) of a pixel-body launch: the fewest groups of at most
+    plan.sg samples, balanced; and the samples of one CTA, a whole number
+    of groups, so that the pixel and channel tiles times the sample splits
+    give at least two CTAs per SM where the samples allow."""
+    groups = -(-samples // plan.sg)
+    sg = -(-samples // groups)
+    groups = -(-samples // sg)
+    splits = min(groups, max(1, -(-2 * sms // tiles)))
+    return sg, -(-groups // splits) * sg
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _align(ptr: int, strides) -> int:
     for v in (16, 8, 4, 2):
         if ptr % v == 0 and all(st % v == 0 for st in strides):
@@ -430,7 +511,8 @@ _FIELDS = (
     "res_scale", "res_out_scale", "res_out_zp",
     "relu", "res_relu", "a_lo", "a_hi", "raw_acc", "raw_win",
     "vec_x", "vec_out", "koff", "pixoff", "halo", "bm", "nt", "mt", "wn",
-    "n_img", "rows", "h_in", "w_in", "pitch", "vx", "kc", "ring", "smem")
+    "n_img", "rows", "h_in", "w_in", "pitch", "vx", "kc", "ring", "smem",
+    "pixel", "sg", "s_cta", "vo")
 _PTRS = frozenset((
     "x", "w", "out", "res", "bias", "x_scale", "w_scale", "w_zp",
     "out_scale", "out_zp", "res_scale", "res_out_scale", "res_out_zp",
@@ -512,7 +594,16 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
         vec_out=int(vec_out), halo=int(plan.design == "halo"), bm=plan.bm,
         nt=plan.nt, mt=plan.mt, wn=plan.wn, n_img=plan.n_img, rows=plan.rows,
         h_in=plan.h_in, w_in=plan.w_in, pitch=plan.pitch, vx=plan.vx,
-        kc=plan.kc, ring=plan.ring, smem=plan.smem_bytes)
+        kc=plan.kc, ring=plan.ring, smem=plan.smem_bytes,
+        pixel=int(plan.design == "pixel"))
+    if plan.design == "pixel":
+        args.sg, args.s_cta = sample_groups(
+            plan, s, -(-b * ho * wo // plan.bm) * (cout // plan.bn),
+            _sm_count(x.device))
+        args.vo = _align(out.data_ptr() if out is not None else 0,
+                         (*out_strides, plan.bn) + (
+                             () if residual is None else
+                             (residual.data_ptr(),)))
     if plan.design == "halo":
         table = _tables(plan, x.device)
         args.koff = table.data_ptr()

@@ -3,7 +3,12 @@ plan_conv), on the CPU: which body each conv shape takes, that the halo
 body's tiles cover every output pixel once within 227 KB of shared memory,
 and that its k -> offset and pixel -> offset tables, which the kernel reads
 as they are, gather from a zero-padded halo tile exactly the im2col columns
-of F.unfold."""
+of F.unfold; and for the pixel body (the stem and the 1x1 convs), a numpy
+emulation of its gathers, sample groups and window sums, which gives the
+im2col columns of F.unfold and, through the plain epilogue, bitwise the
+codes of int_conv_merged_plain."""
+
+import dataclasses
 
 import math
 
@@ -35,12 +40,13 @@ HALO_SHAPES = [s for s in CONV_SHAPES if s[3] == 3 and not s[6]]
                                                     CONV_SHAPES])
 def test_design_by_shape(shape):
     """The 3x3 block convs take the halo body; the stem (shared x, cin 3)
-    and the 1x1/2 shortcuts keep the im2col body."""
+    and the 1x1/2 shortcuts the pixel body."""
     plan = _plan(shape)
-    want = "halo" if shape in HALO_SHAPES else "im2col"
+    want = "halo" if shape in HALO_SHAPES else "pixel"
     assert plan.design == want, plan.reason
-    if want == "im2col":
+    if want == "pixel":
         assert plan.bm == 128 and not plan.koff and not plan.pixoff
+        assert plan.sg >= 1
 
 
 def test_sixteen_halo_convs_per_batch():
@@ -178,13 +184,16 @@ def test_tables_gather_the_unfold_columns(case):
 
 
 @pytest.mark.parametrize("args,why", [
-    ((32, 32, 3, 24, 3, 3, 1, 1, True), "shared input"),
-    ((32, 32, 24, 48, 1, 1, 2, 0, False), "not a 3x3"),
+    ((32, 32, 8, 24, 3, 3, 1, 1, True), "shared input with K > 32"),
+    ((32, 32, 6, 48, 1, 1, 2, 0, False), "1x1 with cin 6"),
     ((16, 16, 6, 24, 3, 3, 1, 1, False), "4-byte"),
     ((16, 16, 8, 40, 3, 3, 1, 1, False), "output channels"),
     ((16, 16, 8, 24, 5, 5, 1, 2, False), "not a 3x3"),
     ((16, 16, 8, 24, 3, 3, 3, 1, False), "not a 3x3"),
     ((7, 7, 8, 24, 3, 3, 1, 1, False), "no tile"),
+    ((32, 32, 24, 40, 1, 1, 2, 0, False), "40 output channels"),
+    ((32, 32, 3, 40, 3, 3, 1, 1, True), "40 output channels"),
+    ((32, 32, 24, 48, 1, 1, 2, 1, False), "not a 3x3"),
 ])
 def test_other_shapes_keep_the_im2col_body(args, why):
     plan = ic.plan_conv(*args)
@@ -210,3 +219,161 @@ def test_pitch_spreads_the_fragment_loads():
                              plan.w_in, cin)
         assert ic._conflicts(plan.pixoff, plan.koff) <= \
             ic._conflicts(dense_p, dense_k)
+
+
+# -- the pixel body -------------------------------------------------------
+
+PIXEL_SHAPES = [s for s in CONV_SHAPES if s not in HALO_SHAPES]
+
+
+@pytest.mark.parametrize("shape", PIXEL_SHAPES, ids=[s[0] for s in
+                                                     PIXEL_SHAPES])
+def test_pixel_plan_fits(shape):
+    """Two CTAs per SM; A rows long enough for a group's runs and the last
+    run's reads up to kc, at a pitch of 16 (mod 32) bytes, so that the 8
+    rows of a fragment load fall in distinct banks; the copy width divides
+    the runs."""
+    cin, cout, k, stride, hw, ho = _geometry(shape)
+    plan = _plan(shape)
+    shared = shape[6]
+    kk = k * k * cin
+    assert plan.kc == -(-kk // 32) * 32
+    assert plan.smem_bytes == ic.pixel_smem(plan.bm, plan.bn, plan.kc,
+                                            plan.sg, plan.pitch)
+    assert plan.smem_bytes <= ic.SMEM_TWO_CTAS
+    assert plan.pitch % 32 == 16
+    if shared:
+        assert kk <= 32 and plan.pitch == plan.kc + 16 and plan.vx == 0
+    else:
+        assert plan.pitch >= plan.sg * cin + plan.kc - cin
+        assert cin % plan.vx == 0 and plan.vx in (8, 16)
+    words = (np.arange(8)[:, None] * plan.pitch // 4 + np.arange(4)) % 32
+    assert len(np.unique(words)) == 32
+    assert cout % plan.bn == 0 and plan.bn // 8 in (3, 6, 12)
+
+
+@pytest.mark.parametrize("samples,tiles", [(100, 2048), (100, 512),
+                                           (100, 128), (100, 64), (3, 1),
+                                           (1, 5), (7, 300)])
+def test_sample_groups_cover_every_sample_once(samples, tiles):
+    for shape in PIXEL_SHAPES:
+        plan = _plan(shape)
+        sg, s_cta = ic.sample_groups(plan, samples, tiles, 132)
+        assert 1 <= sg <= plan.sg and s_cta % sg == 0
+        hits = np.zeros(samples, dtype=np.int64)
+        for z in range(-(-samples // s_cta)):
+            for s0 in range(z * s_cta, min(samples, (z + 1) * s_cta), sg):
+                hits[s0:min(s0 + sg, (z + 1) * s_cta, samples)] += 1
+        assert (hits == 1).all()
+        # split over CTAs only as far as two CTAs per SM need
+        splits = -(-samples // s_cta)
+        assert splits == 1 or tiles * (splits - 1) < 2 * 132
+
+
+def _pixel_emulate(x, w, stride, pad, shared, plan, samples_split):
+    """The pixel body's sums, CTA by CTA, in numpy: the A tile as the
+    kernel fills it (the stem's im2col rows; a 1x1 conv's runs of a
+    group's samples at j * cin in each pixel's row, the rest of the row
+    left as garbage), A words read at r * pitch + j * cin + k for
+    k < kc, the weights zero past K, window sums over k < K. Returns acc
+    (B, Ho, Wo, S, cout) and win (B, Ho, Wo, S) as int64, and the A rows
+    of sample 0 (M, K)."""
+    rng = np.random.default_rng(0)
+    s, kh, kw, cin, cout = w.shape
+    b, h, wd = x.shape[:3]
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (wd + 2 * pad - kw) // stride + 1
+    m_all, kk, kc, bm, bn = b * ho * wo, kh * kw * cin, plan.kc, plan.bm, \
+        plan.bn
+    sg, s_cta = samples_split
+    wk = np.zeros((s, kc, cout), np.int64)
+    wk[:, :kk] = w.reshape(s, kk, cout)
+    xp = np.pad(x.astype(np.int64), ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    acc = np.zeros((m_all, s, cout), np.int64)
+    win = np.zeros((m_all, s), np.int64)
+    rows0 = np.zeros((m_all, kk), np.int64)
+    for m0 in range(0, m_all, bm):
+        mm = np.arange(m0, min(m0 + bm, m_all))
+        bi, rem = np.divmod(mm, ho * wo)
+        hi, wi = np.divmod(rem, wo)
+        for z0 in range(0, s, s_cta):
+            for s0 in range(z0, min(s, z0 + s_cta), sg):
+                ng = min(sg, min(s, z0 + s_cta) - s0)
+                a = rng.integers(-128, 128, (bm, plan.pitch)).astype(np.int64)
+                for r, (bb, y, xx) in enumerate(zip(bi, hi, wi)):
+                    y0, x0 = y * stride, xx * stride
+                    if shared:
+                        patch = xp[bb, y0:y0 + kh, x0:x0 + kw, :]
+                        a[r, :kc] = 0
+                        a[r, :kk] = patch.reshape(-1)
+                    else:
+                        run = x[bb, y0, x0].astype(np.int64)   # S*cin
+                        a[r, :ng * cin] = run[s0 * cin:(s0 + ng) * cin]
+                for j in range(ng):
+                    off = 0 if shared else j * cin
+                    rows = a[:len(mm), off:off + kc]
+                    acc[mm, s0 + j] = rows @ wk[s0 + j]
+                    win[mm, s0 + j] = rows[:, :kk].sum(1)
+                    if s0 + j == 0:
+                        rows0[mm] = rows[:, :kk]
+    return (acc.reshape(b, ho, wo, s, cout), win.reshape(b, ho, wo, s),
+            rows0)
+
+
+# (B, H, cin, cout, k, stride, shared, S): the flagship's stem and
+# shortcuts at a small batch and sample count, and narrow shapes
+PIXEL_CASES = [(2, 8, 3, 24, 3, 1, True, 3), (2, 16, 24, 48, 1, 2, False, 3),
+               (2, 8, 48, 96, 1, 2, False, 2), (3, 4, 96, 192, 1, 2, False, 2),
+               (3, 9, 8, 24, 1, 2, False, 5), (2, 6, 12, 96, 1, 1, False, 3),
+               (1, 12, 2, 48, 3, 2, True, 4)]
+
+
+@pytest.mark.parametrize("case", PIXEL_CASES, ids=str)
+def test_pixel_body_emulation_matches_plain(case):
+    """The emulated sums equal the library convs' (int_conv_sums_plain);
+    its sample-0 A rows are F.unfold's columns; and the plain epilogue on
+    the emulated sums gives bitwise int_conv_merged_plain's codes. Groups
+    of 2 samples (and the plan's own) and sample splits are both run."""
+    b, h, cin, cout, k, stride, shared, s = case
+    pad = k // 2
+    rng = np.random.default_rng(sum(case[:6]))
+    xc = cin if shared else s * cin
+    x = rng.integers(-127, 128, (b, h, h, xc), dtype=np.int8)
+    w = rng.integers(-128, 128, (s, k, k, cin, cout), dtype=np.int8)
+    strides = (h * h * xc, h * xc, xc, 0 if shared else cin)
+    plan = ic.plan_conv(h, h, cin, cout, k, k, stride, pad, shared,
+                        ic._align(0, strides), 16)
+    assert plan.design == "pixel", plan.reason
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    p_acc, p_win = ic.int_conv_sums_plain(xt, wt, (stride, stride),
+                                          [(pad, pad)] * 2, shared)
+    ho = (h + 2 * pad - k) // stride + 1
+    m = b * ho * ho
+    for sg, s_cta in {ic.sample_groups(plan, s, -(-m // plan.bm), 132),
+                      (2, 2), (2, 4)}:
+        small = dataclasses.replace(plan, sg=min(sg, plan.sg))
+        acc, win, rows0 = _pixel_emulate(x, w, stride, pad, shared, small,
+                                         (sg, s_cta))
+        assert np.array_equal(acc, p_acc.numpy()), (sg, s_cta)
+        assert np.array_equal(win, p_win.numpy()), (sg, s_cta)
+    xs = x if shared else x[..., :cin]
+    cols = F.unfold(torch.from_numpy(xs).permute(0, 3, 1, 2).double(), k,
+                    padding=pad, stride=stride)
+    cols = cols.reshape(b, cin, k * k, -1).permute(0, 3, 2, 1).reshape(
+        m, k * k * cin).to(torch.int64).numpy()
+    assert np.array_equal(rows0, cols)
+    # the epilogue of the emulated sums (K <= 520: centered, exact
+    # integers) against the plain version's codes
+    f32 = torch.float32
+    x_scale, w_scale = torch.tensor(0.0794982761), torch.tensor(0.00115220679)
+    w_zp, out_zp = torch.tensor(-6, dtype=torch.int32), torch.tensor(
+        63, dtype=torch.int32)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    y = ((torch.from_numpy(acc) - int(w_zp) * torch.from_numpy(win)[..., None])
+         .to(f32) * (x_scale * w_scale))
+    out_scale = (y + bias).std() / 64
+    got = ic.requant_out(y, bias, out_scale, out_zp, True, 0, 127)
+    want = ic.int_conv_merged_plain(
+        xt, x_scale, wt, w_scale, w_zp, bias, out_scale, out_zp,
+        (stride, stride), [(pad, pad)] * 2, 0, 127, True, shared)
+    assert np.array_equal(got.reshape(want.shape).numpy(), want.numpy())
+    assert len(torch.unique(want)) > 20
