@@ -470,9 +470,9 @@ def phase_int_conv(batch, samples, seed, dev):
     net, bitwise: raw int32 sums (and int64 window sums at sampled
     outputs), then codes with relu off and on, a_hi 127 / 63 / 3, the
     residual epilogue and the per-sample layout, and at K = 1728 codes at
-    the int8 edges. Returns the largest code difference seen."""
+    the int8 edges. Returns the largest code difference seen by body."""
     g = torch.Generator(device=dev).manual_seed(seed + 41)
-    max_err = 0
+    errs = dict.fromkeys(("halo", "pixel", "im2col"), 0)
     for shape in CONV_SHAPES:
         name, cin, cout, k, stride, hw, shared, _n = shape
         x, w, bias = _conv_inputs(batch, samples, shape, g, dev)
@@ -505,7 +505,7 @@ def phase_int_conv(batch, samples, seed, dev):
                      0, a_hi, relu, shared)
                 got = ic.int_conv_merged(*a, _design=design)
                 want = ic.int_conv_merged_plain(*a)
-                max_err = max(max_err, _codes_err(
+                errs[design] = max(errs[design], _codes_err(
                     got, want, f"{name} ({design}) relu={relu} a_hi={a_hi}"))
                 uniq.append(len(torch.unique(got)))
                 if relu and a_hi == 127 and not shared:
@@ -516,7 +516,7 @@ def phase_int_conv(batch, samples, seed, dev):
                                            bias, os_, oz, 0, a_hi, relu, st,
                                            pads, _design=design)
                     del xs
-                    max_err = max(max_err, _codes_err(
+                    errs[design] = max(errs[design], _codes_err(
                         per.permute(1, 2, 3, 0, 4).reshape(want.shape), want,
                         f"{name} ({design}) per-sample layout"))
                     del per
@@ -526,7 +526,7 @@ def phase_int_conv(batch, samples, seed, dev):
                               res_out_zp=_i32(63, dev), res_relu=True)
                     got = ic.int_conv_merged(*a, **rq, _design=design)
                     want = ic.int_conv_merged_plain(*a, **rq)
-                    max_err = max(max_err, _codes_err(
+                    errs[design] = max(errs[design], _codes_err(
                         got, want, f"{name} ({design}) residual"))
                 del got, want
             more = "" if shared else ", per-sample layout, residual"
@@ -555,7 +555,7 @@ def phase_int_conv(batch, samples, seed, dev):
                                                 [(1, 1)] * 2).design,
                                  "im2col"))
         for design in designs:
-            max_err = max(max_err, _codes_err(
+            errs[design] = max(errs[design], _codes_err(
                 ic.int_conv_merged(*a, _design=design), want,
                 f"{name} ({design}) edge codes zw={zw}"))
         print(f"int_conv {name} edge codes (x sign {x_sign}, w sign "
@@ -575,7 +575,7 @@ def phase_int_conv(batch, samples, seed, dev):
                 .max())
     print(f"dense fc: K=192 float32 max|port - f64| {err}")
     check(err == 0, "dense product differs from float64")
-    return max_err
+    return errs
 
 
 def _same_codes(a, b, what):
@@ -601,7 +601,8 @@ def conv_route(fn):
 def phase_main(seed, state, model, plan, dev):
     """`evaluate` on BATCHES batches, then the kernel path against the
     plain path and the card against the CPU; returns the draw kernel's
-    and the conv kernel's launches during `evaluate`."""
+    and the conv kernel's launches during `evaluate`, the latter in all
+    and by body."""
     rng = np.random.default_rng(seed)
     data = [(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
              rng.integers(0, 10, BATCH)) for _ in range(BATCHES)]
@@ -721,7 +722,7 @@ def phase_main(seed, state, model, plan, dev):
                 _same_codes(a, b, f"card vs CPU at {cut}")
         print("card (kernels) == CPU (plain versions), small input, at "
               "every cut")
-    return launches, conv_launches
+    return launches, conv_launches, by_design
 
 
 def phase_profile(model, state, seed, dev):
@@ -789,11 +790,12 @@ def phase_conv_times(seed):
     """The conv kernel at each of the net's conv shapes (B=256, S=100)
     against its plain version and against the float64 cuDNN conv alone
     (the sums of the port's conv before this kernel), in turns; its bound
-    per shape. Returns per-batch (ms, plain_ms, bound_ms, bound_by): each
-    shape's time times its convs per batch, summed."""
+    per shape. Returns per-batch {"all" or body: (ms, plain_ms, bound_ms,
+    bound_by)}: each shape's time times its convs per batch, summed."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 51)
     tot = dict(ms=0.0, im2col=0.0, plain=0.0, f64=0.0, bytes=0, ops=0)
+    by = {}
     for shape in CONV_SHAPES:
         name, cin, cout, k, stride, hw, shared, n = shape
         x, w, bias = _conv_inputs(BATCH, SAMPLES, shape, g, dev)
@@ -852,19 +854,34 @@ def phase_conv_times(seed):
         tot["f64"] += n * f64_ms
         tot["bytes"] += n * nbytes
         tot["ops"] += n * ops
+        b = by.setdefault(plan.design, dict(ms=0.0, plain=0.0, bytes=0,
+                                            ops=0))
+        for key, v in (("ms", ms), ("plain", plain_ms), ("bytes", nbytes),
+                       ("ops", ops)):
+            b[key] += n * v
         del x, w, w_oihw, a
         torch.cuda.empty_cache()
-    bytes_ms = 1e3 * tot["bytes"] / HBM_BYTES_PER_S
-    ops_ms = 1e3 * tot["ops"] / INT8_OPS_PER_S
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    def bound(t):
+        b_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
+        o_ms = 1e3 * t["ops"] / INT8_OPS_PER_S
+        return b_ms, o_ms, max(b_ms, o_ms), (
+            "bytes" if b_ms >= o_ms else "operations")
+
+    out = {}
+    for design, t in by.items():
+        out[design] = (t["ms"], t["plain"]) + bound(t)[2:]
+        print(f"int_conv {design} body per batch: kernel {t['ms']:.3f} ms, "
+              f"plain {t['plain']:.1f} ms, bound {out[design][2]:.4f} ms by "
+              f"{out[design][3]}")
+    bytes_ms, ops_ms, bound_ms, bound_by = bound(tot)
+    out["all"] = (tot["ms"], tot["plain"], bound_ms, bound_by)
     print(f"int_conv per batch ({CONVS_PER_BATCH} convs): kernel "
           f"{tot['ms']:.3f} ms (with the im2col body on every shape "
           f"{tot['im2col']:.3f} ms), plain {tot['plain']:.1f} ms, float64 "
           f"cuDNN convs alone {tot['f64']:.1f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({tot['bytes']} bytes {bytes_ms:.4f} ms, {tot['ops']}"
           f" operations {ops_ms:.4f} ms)")
-    return tot["ms"], tot["plain"], bound_ms, bound_by
+    return out
 
 
 def dense_bound(x, w, sp, eps):
@@ -1280,11 +1297,11 @@ def main(argv=None) -> int:
     with Phase("kernel"):
         max_err = phase_kernel(state, plan, SAMPLES, args.seed, dev)
     with Phase("int_conv"):
-        conv_err = phase_int_conv(BATCH, SAMPLES, args.seed, dev)
+        conv_errs = phase_int_conv(BATCH, SAMPLES, args.seed, dev)
         torch.cuda.empty_cache()
     with Phase("main"):
-        launches, conv_launches = phase_main(args.seed, state, model, plan,
-                                             dev)
+        launches, conv_launches, by_design = phase_main(
+            args.seed, state, model, plan, dev)
         torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(model, state, args.seed, dev)
@@ -1298,7 +1315,7 @@ def main(argv=None) -> int:
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
         d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
-        c_ms, c_plain, c_bound, c_by = phase_conv_times(args.seed)
+        conv_times = phase_conv_times(args.seed)
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
@@ -1309,11 +1326,16 @@ def main(argv=None) -> int:
         "name": "bbb_dense", "route": "cuda", "source": DENSE_SOURCE,
         "replaces": DENSE_REPLACES, "launches": dense_launches,
         "max_abs_err": dense_err, "ms": d_ms, "plain_ms": d_plain,
-        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}, {
-        "name": "int_conv", "route": "cuda", "source": CONV_SOURCE,
-        "replaces": CONV_REPLACES, "launches": conv_launches,
-        "max_abs_err": conv_err, "ms": c_ms, "plain_ms": c_plain,
-        "bound_ms": c_bound, "bound_by": c_by, "library_ms": None}]}))
+        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}] + [{
+        # the conv kernel per batch, then each body on the main path
+        "name": "int_conv" + ("" if key == "all" else f"/{key}"),
+        "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
+        "launches": conv_launches if key == "all" else by_design[key],
+        "max_abs_err": (max(conv_errs.values()) if key == "all" else
+                        conv_errs[key]),
+        "ms": conv_times[key][0], "plain_ms": conv_times[key][1],
+        "bound_ms": conv_times[key][2], "bound_by": conv_times[key][3],
+        "library_ms": None} for key in ("all", "halo", "pixel")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

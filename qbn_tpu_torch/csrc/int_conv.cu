@@ -37,8 +37,9 @@
 // failure; all compute each code with the same epilogue (epi_code and
 // res_code below).
 //
-// "im2col" (any shape the other two do not take). One CTA of 256 threads (8 warps) computes 128 output pixels x up
-// to 96 output channels of one sample; consecutive CTAs take consecutive
+// "im2col" (any shape the other two do not take). One CTA of 256 threads
+// (8 warps) computes 128 output pixels x up to 96 output channels of one
+// sample; consecutive CTAs take consecutive
 // samples, so the CTAs in flight read and write whole runs of the merged
 // layout's S*C bytes per pixel. Per step of K = 32 it gathers the im2col
 // tile of the activations (4-byte loads where cin is a multiple of 4) and
@@ -269,8 +270,9 @@ __device__ __forceinline__ int8_t res_code(const Res& p, int8_t c, int8_t r,
   return (int8_t)(int)requant(y, p.ro_scale, p.ro_zp, p.relu, lo, hi);
 }
 
-// The epilogue of the halo and im2col bodies. The 8 warps are (8 / WN) x WN: warp w's MT
-// m16 tiles are rows 16 MT (w / WN) + 16 i + g (+ 8), its NTW n8 tiles
+// The epilogue of the halo and im2col bodies. The 8 warps are
+// (8 / WN) x WN: warp w's MT m16 tiles are rows
+// 16 MT (w / WN) + 16 i + g (+ 8), its NTW n8 tiles
 // columns n0 + 8 NTW (w % WN) + 8 j + 2 t (+ 1); rowsum and out_off are
 // visible to the CTA. Requantises into Os (BM x 8 NTW WN codes), then the
 // CTA writes them (and reads the residual) in 4-byte words along each
@@ -810,7 +812,8 @@ __device__ __forceinline__ void copy_out(const QbnConvArgs& a,
     }
     if (has_res) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = res_code(rp, v[e], a.res[o + e], lo, hi);
+      for (int e = 0; e < V; ++e)
+        v[e] = res_code(rp, v[e], a.res[o + e], lo, hi);
     }
     if (V == 16)
       *reinterpret_cast<uint4*>(a.out + o) = *reinterpret_cast<uint4*>(v);
@@ -838,8 +841,17 @@ __device__ __forceinline__ void copy_out(const QbnConvArgs& a,
 // and k step one A fragment feeds NT mma.sync m16n8k32. The codes
 // (epi_code, the other bodies' epilogue) are staged per group and written
 // by copy_out.
+// CTAs per SM, matched by the plan's shared-memory budget (ops/int_conv.py
+// _PIXEL_SMEM): 4 at NT = 3 and 6 (64 registers), 3 at NT = 12, whose
+// accumulators spill at 64 registers. On the H100 more CTAs with smaller
+// sample groups ran faster at every flagship shape than 2 with large ones.
+template <int NT>
+constexpr int pixel_min_blocks() {
+  return NT == 12 ? 3 : 4;
+}
+
 template <int NT, bool SHARED>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, pixel_min_blocks<NT>())
 int_conv_pixel_kernel(const QbnConvArgs a) {
   constexpr int BN = 8 * NT, BM = kBM;
   extern __shared__ __align__(16) int8_t smem[];

@@ -59,7 +59,7 @@
 namespace {
 
 constexpr int kVec = 16;         // outputs per 16-byte store
-constexpr int kThreads = 256;    // items per tile (ops/sample_weights.py _TILE)
+constexpr int kThreads = 256;    // items per tile (sample_weights.py _TILE)
 constexpr int kSampleGroup = 4;  // samples per item (_SAMPLES_PER_ITEM)
 constexpr int kMinBlocks = 3;    // CTAs per SM: 3 x 64 KB of tables
 constexpr int kQ = 8;            // qparams per layer, see QIdx

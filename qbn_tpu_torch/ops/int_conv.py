@@ -241,6 +241,11 @@ _LAYOUTS = {3: (2, 1), 6: (2, 1), 12: (2, 2)}
 _IM2COL_BM = 128
 _PIXEL_BM = 128
 _MAX_GROUP = 32               # samples per group of the pixel body
+# the pixel body's shared memory per CTA, by n8 tiles: four CTAs per SM at
+# 3 and 6, three at 12 (as many as its registers allow, csrc/int_conv.cu
+# pixel_min_blocks); more CTAs with smaller sample groups measured faster
+# on the H100 than two CTAs with large ones
+_PIXEL_SMEM = {3: 55 * 1024, 6: 55 * 1024, 12: 74 * 1024}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -394,7 +399,7 @@ def _pixel_plan(cin, cout, k, shared_x, x_align, w_align, reason):
     for sg in range(_MAX_GROUP, 0, -1):
         pitch = kc + 16 if shared_x else _pixel_pitch(sg, cin, kc)
         smem = pixel_smem(_PIXEL_BM, bn, kc, sg, pitch)
-        if smem <= SMEM_TWO_CTAS:
+        if smem <= _PIXEL_SMEM[bn // 8]:
             return ConvPlan("pixel", reason, bm=_PIXEL_BM, nt=bn // 8,
                             pitch=pitch, vx=vx, kc=kc, sg=sg,
                             smem_bytes=smem)

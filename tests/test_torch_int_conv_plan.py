@@ -229,10 +229,10 @@ PIXEL_SHAPES = [s for s in CONV_SHAPES if s not in HALO_SHAPES]
 @pytest.mark.parametrize("shape", PIXEL_SHAPES, ids=[s[0] for s in
                                                      PIXEL_SHAPES])
 def test_pixel_plan_fits(shape):
-    """Two CTAs per SM; A rows long enough for a group's runs and the last
-    run's reads up to kc, at a pitch of 16 (mod 32) bytes, so that the 8
-    rows of a fragment load fall in distinct banks; the copy width divides
-    the runs."""
+    """Three or four CTAs per SM; A rows long enough for a group's runs
+    and the last run's reads up to kc, at a pitch of 16 (mod 32) bytes, so
+    that the 8 rows of a fragment load fall in distinct banks; the copy
+    width divides the runs."""
     cin, cout, k, stride, hw, ho = _geometry(shape)
     plan = _plan(shape)
     shared = shape[6]
@@ -240,7 +240,9 @@ def test_pixel_plan_fits(shape):
     assert plan.kc == -(-kk // 32) * 32
     assert plan.smem_bytes == ic.pixel_smem(plan.bm, plan.bn, plan.kc,
                                             plan.sg, plan.pitch)
-    assert plan.smem_bytes <= ic.SMEM_TWO_CTAS
+    assert plan.smem_bytes <= ic._PIXEL_SMEM[plan.nt]
+    ctas = 4 if plan.nt < 12 else 3
+    assert ctas * (plan.smem_bytes + 1024) <= ic.SMEM_LIMIT
     assert plan.pitch % 32 == 16
     if shared:
         assert kk <= 32 and plan.pitch == plan.kc + 16 and plan.vx == 0
@@ -281,7 +283,8 @@ def _pixel_emulate(x, w, stride, pad, shared, plan, samples_split):
     rng = np.random.default_rng(0)
     s, kh, kw, cin, cout = w.shape
     b, h, wd = x.shape[:3]
-    ho, wo = (h + 2 * pad - kh) // stride + 1, (wd + 2 * pad - kw) // stride + 1
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (wd + 2 * pad - kw) // stride + 1
     m_all, kk, kc, bm, bn = b * ho * wo, kh * kw * cin, plan.kc, plan.bm, \
         plan.bn
     sg, s_cta = samples_split
@@ -350,7 +353,9 @@ def test_pixel_body_emulation_matches_plain(case):
     m = b * ho * ho
     for sg, s_cta in {ic.sample_groups(plan, s, -(-m // plan.bm), 132),
                       (2, 2), (2, 4)}:
-        small = dataclasses.replace(plan, sg=min(sg, plan.sg))
+        pitch = plan.pitch if shared or sg <= plan.sg else \
+            ic._pixel_pitch(sg, cin, plan.kc)
+        small = dataclasses.replace(plan, sg=sg, pitch=pitch)
         acc, win, rows0 = _pixel_emulate(x, w, stride, pad, shared, small,
                                          (sg, s_cta))
         assert np.array_equal(acc, p_acc.numpy()), (sg, s_cta)
