@@ -296,13 +296,6 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def work_items(n: int, samples: int) -> int:
-    """Work items of one layer (see LayerPack)."""
-    if n % _VEC == 0:
-        return -(-samples // _SAMPLES_PER_ITEM) * (n // _VEC)
-    return -(-samples * n // _VEC)
-
-
 def pack_layers(layers: Sequence, samples: int) -> LayerPack:
     """layers: [(w_codes, std_codes, qparams, w_lo, w_hi)], codes of any
     shape (the draw is elementwise), all on one device."""
@@ -323,7 +316,8 @@ def pack_layers(layers: Sequence, samples: int) -> LayerPack:
         if samples * n > 1 << 34:
             raise ValueError(f"{samples} x {n} outputs exceed 2^34 per "
                              "layer (the Philox call index is 32 bits)")
-        items = work_items(n, samples)
+        items = (-(-samples // _SAMPLES_PER_ITEM) * (n // _VEC)
+                 if n % _VEC == 0 else -(-samples * n // _VEC))
         tiles = -(-items // _TILE)
         rows.append((len(tile_layer), items, dst, src, n, samples, lo, hi))
         tile_layer += [li] * tiles
