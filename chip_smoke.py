@@ -522,8 +522,19 @@ def phase_int_conv(batch, samples, seed, dev):
                     want = ic.int_conv_merged_plain(*a, **rq)
                     errs[design] = max(errs[design], _codes_err(
                         got, want, f"{name} ({design}) residual"))
+                    # a residual that starts at an odd address: the
+                    # epilogue's byte path
+                    odd = torch.empty(res.numel() + 1, dtype=torch.int8,
+                                      device=dev)[1:].view(res.shape)
+                    odd.copy_(res)
+                    got = ic.int_conv_merged(*a, **{**rq, "residual": odd},
+                                             _design=design)
+                    errs[design] = max(errs[design], _codes_err(
+                        got, want, f"{name} ({design}) odd residual"))
+                    del odd
                 del got, want
-            more = "" if shared else ", per-sample layout, residual"
+            more = "" if shared else (", per-sample layout, residual (also "
+                                      "at an odd address)")
             print(f"int_conv {name} ({design}): K={k * k * cin} B={batch} "
                   f"S={samples} raw sums == float64 convs == int64 windows "
                   f"(64 sampled); codes == plain (relu off/on, a_hi "
