@@ -842,9 +842,10 @@ __device__ __forceinline__ void copy_out(const QbnConvArgs& a,
 // (epi_code, the other bodies' epilogue) are staged per group and written
 // by copy_out.
 // CTAs per SM, matched by the plan's shared-memory budget (ops/int_conv.py
-// _PIXEL_SMEM): 4 at NT = 3 and 6 (64 registers), 3 at NT = 12, whose
-// accumulators spill at 64 registers. On the H100 more CTAs with smaller
-// sample groups ran faster at every flagship shape than 2 with large ones.
+// _PIXEL_SMEM): 4 at NT = 3 and 6 (64 registers, no spills), 3 at
+// NT = 12, whose accumulators spill heavily at 64 registers (4 bytes still
+// at 80). On the H100 more CTAs with smaller sample groups ran faster at
+// every flagship shape than 2 with large ones.
 template <int NT>
 constexpr int pixel_min_blocks() {
   return NT == 12 ? 3 : 4;
