@@ -76,6 +76,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -135,14 +136,19 @@ INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core operations/s
 # above (132 x 128 lanes x 2 x 1.98 GHz = 67 TFLOP/s).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # The seeded draw's work per code: Philox-4x32-10 gives 4 codes a call of
-# 10 rounds, each two 32 x 32 -> 64-bit products (a high and a low
-# multiply each) and four XORs: 80 int32 operations a call, 20 a code.
-# Then the quantise chain from eps_q: eps_q * 3/127, two multiplies, a
+# 10 rounds, each two 32 x 32 -> 64-bit products and two three-input XORs
+# (hi ^ counter word ^ key word). nvcc issues a product as one
+# IMAD.WIDE.U32 and an XOR as one LOP3.LUT, and runs the key schedule on
+# the uniform datapath (draw_sass_mix prints the draw kernel's Philox
+# instructions). At the documented 64 32-bit integer results per SM and
+# clock (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), a product counts as two results (its high and
+# low words), an XOR as one: 6 a round, 60 a call, 15 a code. Then the quantise chain from eps_q: eps_q * 3/127, two multiplies, a
 # round, + zero point, two clips, - zero point, a multiply, + w_f, a
 # multiply, a round, + zero point, two clips (the int8 and the weight
 # range, merged) and the convert: 17 fp32 operations. The dequantised
 # mean and std are per element, not per code, and not counted.
-PHILOX_INT_OPS_PER_CODE = 20
+PHILOX_INT_OPS_PER_CODE = 15
 CHAIN_FP32_OPS_PER_CODE = 17
 
 
@@ -235,6 +241,19 @@ def _cpu_layers(layers):
 
 def phase_kernel(state, plan, samples, seed, dev):
     """Kernel against plain: returns the largest code difference seen."""
+    # the eps_q table, built on the card by the first seeded draw there
+    # (its set-up), twice: bitwise the CPU's
+    for when in ("first", "again"):
+        sw._icdf_table.cache_clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = sw.icdf_table(dev)
+        torch.cuda.synchronize()
+        print(f"eps_q table built on the card ({when}): "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    check(torch.equal(table.cpu(), sw.icdf_table("cpu")),
+          "the card's eps_q table differs from the CPU's")
+    print("eps_q table: the card's == the CPU's, bitwise")
     g = torch.Generator(device=dev).manual_seed(seed)
     layers = plan_layers(state, plan)
     pack = sw.pack_layers(layers, samples)
@@ -523,7 +542,8 @@ def phase_int_conv(batch, samples, seed, dev):
                     errs[design] = max(errs[design], _codes_err(
                         got, want, f"{name} ({design}) residual"))
                     # a residual that starts at an odd address: the
-                    # epilogue's byte path
+                    # halo and im2col epilogues' byte path; the pixel
+                    # body reads it a byte at a time beside wide stores
                     odd = torch.empty(res.numel() + 1, dtype=torch.int8,
                                       device=dev)[1:].view(res.shape)
                     odd.copy_(res)
@@ -744,6 +764,42 @@ def phase_profile(model, state, seed, dev):
     report_profile(prof, 1e6 * secs[0], "profiled batch")
 
 
+# Philox-4x32-10's multipliers as cuobjdump prints them (signed 32-bit
+# immediates, or unsigned where an add folds one in)
+_PHILOX_M_SASS = ("-0x2daee0ad", "-0x326172a9", "0xd2511f53", "0xcd9e8d57")
+
+
+def draw_sass_mix():
+    """The draw kernel's Philox instructions in its SASS (cuobjdump of the
+    library built in phase build): the instructions by opcode that take a
+    Philox multiplier, and the LOP3.LUTs by truth table (0x96 is a
+    three-input XOR, 0x3c a two-input one). The kernel inlines 8 Philox
+    calls of 10 rounds: 4 for each of its two item paths."""
+    lib = _build.BUILD_DIR / "libsample_weights.so"
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if f.split("\n", 1)[0].find("draw_kernel") >= 0)
+    products, lop3 = {}, {}
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z0-9_.]+)\s*([^;]*);", line)
+        if not m:
+            continue
+        op, args = m.groups()
+        if any(c in args for c in _PHILOX_M_SASS):
+            products[op] = products.get(op, 0) + 1
+        if op == "LOP3.LUT":
+            lut = args.split(",")[-2].strip()
+            lop3[lut] = lop3.get(lut, 0) + 1
+    check(products, "no Philox multiplier in the draw kernel's SASS")
+    print(f"draw_kernel SASS, 8 inlined Philox calls x 10 rounds: "
+          f"instructions with a Philox multiplier {products}; LOP3.LUT by "
+          f"truth table {lop3}")
+
+
 def phase_times(state, plan, samples, seed):
     """The draw kernel and its plain version at the flagship shapes, in
     turns, and the kernel's bound; returns (ms, plain_ms, bound_ms,
@@ -769,6 +825,7 @@ def phase_times(state, plan, samples, seed):
     ops_ms = max(int_ms, fp_ms)       # the two pipes run side by side
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    draw_sass_mix()
     # turns: plain, kernel, kernel, plain
     t = [cuda_ms(plain, iters=3, warmup=1), cuda_ms(kernel),
          cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1)]
@@ -878,6 +935,8 @@ def phase_conv_times(seed):
         print(f"int_conv {design} body per batch: kernel {t['ms']:.3f} ms, "
               f"plain {t['plain']:.1f} ms, bound {out[design][2]:.4f} ms by "
               f"{out[design][3]}")
+    # the im2col body on every shape, in turns with the plan's body
+    out["im2col"] = (tot["im2col"], tot["plain"]) + bound(tot)[2:]
     bytes_ms, ops_ms, bound_ms, bound_by = bound(tot)
     out["all"] = (tot["ms"], tot["plain"], bound_ms, bound_by)
     print(f"int_conv per batch ({CONVS_PER_BATCH} convs): kernel "
@@ -1332,7 +1391,9 @@ def main(argv=None) -> int:
         "replaces": DENSE_REPLACES, "launches": dense_launches,
         "max_abs_err": dense_err, "ms": d_ms, "plain_ms": d_plain,
         "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}] + [{
-        # the conv kernel per batch, then each body on the main path
+        # the conv kernel per batch, then each body: the halo and pixel
+        # bodies on the main path, the im2col body (no launch there) timed
+        # on every shape in turns with them
         "name": "int_conv" + ("" if key == "all" else f"/{key}"),
         "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
         "launches": conv_launches if key == "all" else by_design[key],
@@ -1340,7 +1401,7 @@ def main(argv=None) -> int:
                         conv_errs[key]),
         "ms": conv_times[key][0], "plain_ms": conv_times[key][1],
         "bound_ms": conv_times[key][2], "bound_by": conv_times[key][3],
-        "library_ms": None} for key in ("all", "halo", "pixel")]}))
+        "library_ms": None} for key in ("all", "halo", "pixel", "im2col")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -841,11 +841,11 @@ __device__ __forceinline__ void copy_out(const QbnConvArgs& a,
 // and k step one A fragment feeds NT mma.sync m16n8k32. The codes
 // (epi_code, the other bodies' epilogue) are staged per group and written
 // by copy_out.
-// CTAs per SM, matched by the plan's shared-memory budget (ops/int_conv.py
-// _PIXEL_SMEM): 4 at NT = 3 and 6 (64 registers, no spills), 3 at
-// NT = 12, whose accumulators spill heavily at 64 registers (4 bytes still
-// at 80). On the H100 more CTAs with smaller sample groups ran faster at
-// every flagship shape than 2 with large ones.
+// CTAs per SM: the numbers of ops/int_conv.py PIXEL_CTAS, from which the
+// plan's shared-memory budget is derived: 4 at NT = 3 and 6 (64
+// registers, no spills), 3 at NT = 12, whose accumulators spill heavily at
+// 64 registers (4 bytes still at 80). On the H100 more CTAs with smaller
+// sample groups ran faster at every flagship shape than 2 with large ones.
 template <int NT>
 constexpr int pixel_min_blocks() {
   return NT == 12 ? 3 : 4;

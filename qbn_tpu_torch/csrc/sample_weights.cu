@@ -44,12 +44,15 @@
 // it is 16 consecutive outputs of the block, which may run across a sample
 // boundary (byte loads).
 //
-// What bounds it on an H100: the instructions. Per code, 5 Philox
-// multiplies and XORs of 32-bit integers (10 rounds over 4 words) on the
-// 64 int32 lanes of an SM, and the quantise chain from eps_q (about 17
-// float32 operations) on the 128 float32 lanes; the output is 1 byte per
-// code (157.2 MB at the flagship's S = 100, 47 us at 3.35 TB/s).
-// chip_smoke.py states the bound it computes from these counts.
+// What bounds it on an H100: the instructions. A Philox call gives 4 codes
+// in 10 rounds, each two 32 x 32 -> 64-bit products (one IMAD.WIDE.U32
+// each, a high and a low result) and two three-input XORs (one LOP3 each);
+// the key schedule runs on the uniform datapath. So per code 15 results on
+// the 64 int32 lanes of an SM (a product counted as two), and the quantise
+// chain from eps_q (about 17 float32 operations) on the 128 float32 lanes;
+// the output is 1 byte per code (157.2 MB at the flagship's S = 100, 47 us
+// at 3.35 TB/s). chip_smoke.py prints the kernel's Philox instructions
+// from its SASS and states the bound it computes from these counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -241,11 +241,15 @@ _LAYOUTS = {3: (2, 1), 6: (2, 1), 12: (2, 2)}
 _IM2COL_BM = 128
 _PIXEL_BM = 128
 _MAX_GROUP = 32               # samples per group of the pixel body
-# the pixel body's shared memory per CTA, by n8 tiles: four CTAs per SM at
-# 3 and 6, three at 12 (as many as its registers allow, csrc/int_conv.cu
-# pixel_min_blocks); more CTAs with smaller sample groups measured faster
-# on the H100 than two CTAs with large ones
-_PIXEL_SMEM = {3: 55 * 1024, 6: 55 * 1024, 12: 74 * 1024}
+# the pixel body's CTAs per SM, by n8 tiles: four at 3 and 6, three at 12
+# (as many as its registers allow; csrc/int_conv.cu pixel_min_blocks gives
+# __launch_bounds__ the same numbers); more CTAs with smaller sample groups
+# measured faster on the H100 than two CTAs with large ones
+PIXEL_CTAS = {3: 4, 6: 4, 12: 3}
+# its shared memory per CTA: a share of SMEM_LIMIT, less the 1 KB the
+# card reserves per CTA, in whole KB
+_PIXEL_SMEM = {nt: (SMEM_LIMIT // c - 1024) // 1024 * 1024
+               for nt, c in PIXEL_CTAS.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -605,10 +609,10 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
         args.sg, args.s_cta = sample_groups(
             plan, s, -(-b * ho * wo // plan.bm) * (cout // plan.bn),
             _sm_count(x.device))
+        # the residual is read a byte at a time: only the output's
+        # address and strides set the width of the stores
         args.vo = _align(out.data_ptr() if out is not None else 0,
-                         (*out_strides, plan.bn) + (
-                             () if residual is None else
-                             (residual.data_ptr(),)))
+                         (*out_strides, plan.bn))
     if plan.design == "halo":
         table = _tables(plan, x.device)
         args.koff = table.data_ptr()

@@ -156,20 +156,22 @@ _BUCKET_BITS = 9      # a bucket holds 512 consecutive 23-bit uniforms
 
 
 @functools.lru_cache(maxsize=None)
-def _icdf_table_cpu() -> torch.Tensor:
+def _icdf_table(device: str) -> torch.Tensor:
     """The kernel's eps_q lookup, from the plain transform over all 2^23
-    uniforms k: eps_q(k) = 127 - c(k), with c non-decreasing in k (the
-    transform is monotone; checked here, and the build raises if not).
-    Entry b of 2^14 (one per bucket of 512 k) is c(512 b) | off << 8,
-    where off (1..511, or 512 for none) is the offset in the bucket of its
-    one step of c, so that c(k) = (entry & 255) + (k % 512 >= off)."""
+    uniforms k, computed on `device`: eps_q(k) = 127 - c(k), with c
+    non-decreasing in k (the transform is monotone; checked here, and the
+    build raises if not). Entry b of 2^14 (one per bucket of 512 k) is
+    c(512 b) | off << 8, where off (1..511, or 512 for none) is the offset
+    in the bucket of its one step of c, so that
+    c(k) = (entry & 255) + (k % 512 >= off)."""
+    dev = torch.device(device)
     n_buckets = 1 << (23 - _BUCKET_BITS)
     width = 1 << _BUCKET_BITS
-    table = torch.empty(n_buckets, dtype=torch.int32)
+    table = torch.empty(n_buckets, dtype=torch.int32, device=dev)
     chunk = 1 << 20
     prev = None
     for k0 in range(0, 1 << 23, chunk):
-        k = torch.arange(k0, k0 + chunk, dtype=torch.int64)
+        k = torch.arange(k0, k0 + chunk, dtype=torch.int64, device=dev)
         c = (127 - eps_q_of(icdf_normals(k << 9))).to(torch.int64)
         steps = torch.diff(c, prepend=c[:1] if prev is None else prev)
         if bool((steps < 0).any()) or bool((steps > 1).any()):
@@ -187,22 +189,17 @@ def _icdf_table_cpu() -> torch.Tensor:
     return table
 
 
-_TABLES: dict = {}
-
-
 def icdf_table(device) -> torch.Tensor:
-    """The eps_q lookup table on `device` (built once per process)."""
-    key = str(device)
-    if key not in _TABLES:
-        _TABLES[key] = _icdf_table_cpu().to(device)
-    return _TABLES[key]
+    """The eps_q lookup table, built on `device` once per process (the
+    first seeded draw there builds it)."""
+    return _icdf_table(str(torch.device(device)))
 
 
 def eps_q_law() -> torch.Tensor:
     """P(eps_q = v) of the seeded draw for v = -128..127 (float64, index
     v + 128): the share of the 2^23 uniforms on each step of the table,
     exactly."""
-    table = _icdf_table_cpu().to(torch.int64)
+    table = icdf_table("cpu").to(torch.int64)
     width = 1 << _BUCKET_BITS
     c0, off = table & 255, table >> 8
     counts = torch.zeros(256, dtype=torch.float64)

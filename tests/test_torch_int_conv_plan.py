@@ -241,7 +241,7 @@ def test_pixel_plan_fits(shape):
     assert plan.smem_bytes == ic.pixel_smem(plan.bm, plan.bn, plan.kc,
                                             plan.sg, plan.pitch)
     assert plan.smem_bytes <= ic._PIXEL_SMEM[plan.nt]
-    ctas = 4 if plan.nt < 12 else 3
+    ctas = ic.PIXEL_CTAS[plan.nt]
     assert ctas * (plan.smem_bytes + 1024) <= ic.SMEM_LIMIT
     assert plan.pitch % 32 == 16
     if shared:
