@@ -24,8 +24,9 @@
 // eps_q without float work. eps_q of the inverse-CDF normal is a step
 // function of the 23-bit uniform k, monotone (checked over all 2^23 k when
 // the table is built), with at most one step in any 512 consecutive k. A
-// table built on the host from the plain transform, one 32-bit entry per
-// bucket of 512 k (64 KB, in shared memory), gives
+// table that the wrapper builds on the card from the plain transform
+// (ops/sample_weights.py icdf_table), one 32-bit entry per bucket of 512 k
+// (64 KB, in shared memory), gives
 //   c = (entry & 255) + (k % 512 >= entry >> 8),   eps_q = 127 - c,
 // so the kernel runs neither polynomial.
 //
