@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout: it builds the port's CUDA kernels with nvcc
-and drives the port's two paths at full width: INT8 Monte-Carlo evaluation
+and drives the port's paths at full width: INT8 Monte-Carlo evaluation
 of the trained Bayes-by-backprop ResNet-18
-(examples/campaign/bbb-cifar-a_7_w_8-seed1) on CIFAR-shaped inputs, and
-float Bayes-by-backprop training of the MNIST LeNet on MNIST-shaped
-inputs, both made from --seed with numpy. Phases, in order, each printing
-its seconds:
+(examples/campaign/bbb-cifar-a_7_w_8-seed1) on CIFAR-shaped inputs, INT8
+MC evaluation of the ResNet-18 for MC-Dropout, pointwise and an SGHMC
+ensemble, and float Bayes-by-backprop training of the MNIST LeNet on
+MNIST-shaped inputs, all made from --seed with numpy. Phases, in order,
+each printing its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
   2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
@@ -43,25 +44,41 @@ its seconds:
               against the CPU path on a small input
   6. profile  one batch under torch.profiler: device time by kernel and
               the device's idle share
-  7. bbb_dense the local-reparametrisation dense kernel (3xTF32) against
+  7. methods  INT MC evaluation of MC-Dropout (p=0.15; B=256, S=100 and
+              S=20), pointwise (B=256) and a 7-member SGHMC ensemble
+              (B=256) at the flagship's full widths, on states made from
+              --seed (posterior draws of the flagship as weights, its
+              qparams jittered per member): `evaluate` per path with the
+              counts set to 0 before it and read after (20 conv launches
+              a forward, all with shared weights: 16 halo, 3 pixel, the
+              stem on the im2col body; no draw), ms per batch and
+              example-samples/s; each distinct conv shape of a full-size
+              forward against its plain version on the recorded inputs;
+              one forward per method at B=8, kernel path against plain
+              path and card against CPU, at every cut
+  8. methods_profile one MC-Dropout batch under torch.profiler
+  9. bbb_dense the local-reparametrisation dense kernel (3xTF32) against
               its plain version and the float32 dot-product bound of a
               float64 product at LeNet's fc_0 and fc_1 and at a ragged
               shape, its hand-written backward against autograd,
               and the moments and lag-1 correlations of 10^7 of its own
               (seed-mode) normals
-  8. train    `flows.fit` of the BBB LeNet with tpu_fused=True: B=256,
+  10. train   `flows.fit` of the BBB LeNet with tpu_fused=True: B=256,
               2 epochs x 10 steps, the dense kernel's launch count (2 per
               step), the kernel path against the plain path for 3 steps
               with the same params and noise, the card against the CPU at
               B=8, and ms per steady step
-  9. train_profile one training step under torch.profiler
- 10. times    each kernel against its plain version and its bound, in
+  11. train_profile one training step under torch.profiler
+  12. times   each kernel against its plain version and its bound, in
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
               against the float64 cuDNN conv alone and, at every shape
               that takes the halo or the pixel body, the im2col body; the
               draw kernel against its bound restated with the Philox
-              integer work)
+              integer work; the conv kernel with shared weights per
+              shape of an MC-Dropout forward, bitwise against its plain
+              version on random codes, and against its bound with the
+              weights counted once)
 
 Any failed check raises and the run exits non-zero. The last lines are a
 `{"kernels": [...]}` JSON object and `{"ok": true, "device": {...}}`.
@@ -87,7 +104,9 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from qbn_tpu_torch.config import Config
 from qbn_tpu_torch.convert import to_device
+from qbn_tpu_torch.evaluation.ensemble import stack_variables
 from qbn_tpu_torch.evaluation.mc import (
     draw_sampled_weights, evaluate, mc_predict, plan_layers, presample_plan,
     sampled_tree)
@@ -100,7 +119,7 @@ from qbn_tpu_torch.ops import bbb_dense as bd
 from qbn_tpu_torch.ops import int_conv as ic
 from qbn_tpu_torch.ops import sample_weights as sw
 from qbn_tpu_torch.ops.stochastic import (
-    QueueNoise, local_reparam_dense_auto, softplus)
+    BernoulliMasks, QueueNoise, local_reparam_dense_auto, softplus)
 from qbn_tpu_torch.presets import preset
 from qbn_tpu_torch.training.metrics import (
     cls_metrics_compute, cls_metrics_init)
@@ -611,16 +630,17 @@ def _same_codes(a, b, what):
 
 
 @contextlib.contextmanager
-def conv_route(fn):
-    """Route the model's convs (models/layers.py's `int_conv_merged`)
-    through `fn(real, *args, **kwargs)` for the duration, from this script:
-    the package has no switch."""
-    real = model_layers.int_conv_merged
-    model_layers.int_conv_merged = functools.partial(fn, real)
+def conv_route(fn, name="int_conv_merged"):
+    """Route the model's convs (models/layers.py's `int_conv_merged`, or
+    `int_conv` for the deterministic blocks) through `fn(real, *args,
+    **kwargs)` for the duration, from this script: the package has no
+    switch."""
+    real = getattr(model_layers, name)
+    setattr(model_layers, name, functools.partial(fn, real))
     try:
         yield
     finally:
-        model_layers.int_conv_merged = real
+        setattr(model_layers, name, real)
 
 
 def phase_main(seed, state, model, plan, dev):
@@ -640,12 +660,14 @@ def phase_main(seed, state, model, plan, dev):
             yield x, y
 
     gen = torch.Generator().manual_seed(seed)
-    sw.launches = ic.launches = 0
-    ic.launches_by_design.update(halo=0, pixel=0, im2col=0)
+    _reset_counts()
     metric_state, probs, seconds = evaluate(model, state, batches(),
                                             SAMPLES, gen, dev)
     launches, conv_launches = sw.launches, ic.launches
     by_design = dict(ic.launches_by_design)
+    check(not any(ic.launches_shared_w.values()),
+          f"shared-weight conv launches on the BBB path "
+          f"{ic.launches_shared_w}")
     check(seen == [(i, CONVS_PER_BATCH * i, HALO_PER_BATCH * i)
                    for i in range(BATCHES)],
           f"(draw, conv, halo conv) launches before each batch {seen}")
@@ -762,6 +784,303 @@ def phase_profile(model, state, seed, dev):
         _state, _probs, secs = evaluate(model, state, batch, SAMPLES, gen,
                                         dev)
     report_profile(prof, 1e6 * secs[0], "profiled batch")
+
+
+# The INT MC evaluation of the other three methods at the flagship's full
+# widths (24/48/96/192, A7/W8) and batch: MC-Dropout at the BBB path's S
+# (and at the campaign configs' S), pointwise, an SGHMC ensemble
+MC_P = 0.15                   # examples/campaign/mcdropout-cifar-seed1
+MC_CAMPAIGN_SAMPLES = 20      # that config's samples
+MEMBERS = 7                   # SGHMC ensemble members (qbn_tpu's sgld
+#                               CIFAR preset, presets.py:67-73)
+METHOD_MODELS = {"mcdropout": "conv_resnet_mc", "pointwise": "conv_resnet",
+                 "sgld": "conv_resnet_sgld"}
+# conv launches a forward (a member's, in the ensemble) takes, by body, all
+# with one set of weights for every sample: the 16 3x3 convs on the halo
+# body, the 1x1/2 shortcuts on the pixel body, and the stem as one sample
+# (no sample axis, cin 3) on the im2col body
+SHARED_BY_DESIGN = {"halo": 16, "pixel": 3, "im2col": 1}
+SMALL_BATCH, SMALL_SAMPLES = 8, 4     # the kernel-vs-plain whole forwards
+
+
+def _reset_counts():
+    sw.launches = ic.launches = 0
+    for d in (ic.launches_by_design, ic.launches_shared_w):
+        d.update(halo=0, pixel=0, im2col=0)
+
+
+def method_states(state, plan, seed, dev):
+    """INT states of the deterministic ResNet-18 at the flagship's widths,
+    made from --seed (no committed checkpoint carries one for these
+    methods): each member's weights are a posterior draw of the flagship
+    (the seeded draw kernel), its qparams the flagship's (the weight grid
+    that of the drawn codes, add_scale and add_zp), the scales jittered
+    by a factor in [0.95, 1.05] per member and layer; an MC-Dropout
+    site's multiply grid is the grid of the layer it follows. Returns
+    (MC-Dropout state, pointwise state, the MEMBERS members stacked)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 61)
+    sampled = draw_sampled_weights(state, plan, MEMBERS, g)
+    rng = np.random.default_rng(seed + 62)
+
+    def jitter(v):
+        f = torch.tensor(rng.uniform(0.95, 1.05), dtype=torch.float32,
+                         device=v.device)
+        return v * f
+
+    def member(node, drawn, m):
+        if "w_codes" in node:          # a conv or dense block's 'q'
+            q = {"w_codes": drawn["w"][m].contiguous(),
+                 "w_scale": jitter(node["add_scale"]),
+                 "w_zp": node["add_zp"], "act_scale": jitter(
+                     node["act_scale"]), "act_zp": node["act_zp"]}
+            if "bias_f" in node:
+                q["bias_f"] = node["bias_f"]
+            return q
+        if "scale" in node:            # input quantisation, residual add
+            return {"scale": jitter(node["scale"]), "zp": node["zp"]}
+        return {k: member(v, drawn.get(k, {}) if k != "q" else drawn, m)
+                for k, v in node.items()}
+
+    members = [{"qconst": member(state["qconst"], sampled, m)}
+               for m in range(MEMBERS)]
+
+    def site(block):
+        q = block["q"]
+        return {"q": {"mul_scale": q["act_scale"], "mul_zp": q["act_zp"]}}
+
+    qc = dict(members[0]["qconst"])
+    qc["drop_stem"] = site(qc["stem"])
+    for name in [n for n in qc if n.startswith("stage")]:
+        blk = dict(qc[name])
+        blk["drop_0"] = site(blk["conv_bn_relu"])
+        blk["drop_1"] = site(blk["conv_bn"])
+        if "shortcut" in blk:
+            blk["drop_sc"] = site(blk["shortcut"])
+        qc[name] = blk
+    return {"qconst": qc}, members[0], stack_variables(members)
+
+
+def _same_outputs(a, b, what):
+    """Bitwise equal probabilities, codes at a cut, or a list of members'
+    codes."""
+    if isinstance(a, list):
+        for i, (u, v) in enumerate(zip(a, b)):
+            _same_outputs(u, v, f"{what}, member {i}")
+    elif isinstance(a, torch.Tensor):
+        d = float((a.cpu() - b.cpu()).abs().max())
+        check(d == 0.0, f"{what}: probabilities differ by {d}")
+    else:
+        _codes_err(a.codes.cpu(), b.codes.cpu(), what)
+
+
+def phase_methods(seed, state, plan, dev):
+    """The new paths through `evaluate` at B=256, each with every count set
+    to 0 just before it and read just after (20 conv launches a forward,
+    all with shared weights, on the bodies of SHARED_BY_DESIGN; no draw);
+    each distinct conv shape of a full-size kernel-path forward against
+    its plain version on the recorded inputs; one whole forward per
+    method at B=8, kernel path against plain path and card against CPU,
+    at every cut. Returns ({run: conv launches}, {method: steady ms per
+    batch}, the largest code difference, the states)."""
+    mc, pw, ens = method_states(state, plan, seed, dev)
+    models = {m: build_model(Config(model=name, q=True, p=MC_P))
+              for m, name in METHOD_MODELS.items()}
+    rng = np.random.default_rng(seed + 63)
+    data = [(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
+             rng.integers(0, 10, BATCH)) for _ in range(BATCHES)]
+    launches, steady_ms = {}, {}
+    for label, method, st, samples in [
+            ("mcdropout", "mcdropout", mc, SAMPLES),
+            (f"mcdropout S={MC_CAMPAIGN_SAMPLES}", "mcdropout", mc,
+             MC_CAMPAIGN_SAMPLES),
+            ("pointwise", "pointwise", pw, 1),
+            (f"sgld {MEMBERS} members", "sgld", ens, MEMBERS)]:
+        per_batch = CONVS_PER_BATCH * (MEMBERS if method == "sgld" else 1)
+        gen = torch.Generator(device=dev).manual_seed(seed + 64)
+        _reset_counts()
+        metric_state, probs, seconds = evaluate(models[method], st, data,
+                                                samples, gen, dev)
+        n, draws = ic.launches, sw.launches
+        by, shared = dict(ic.launches_by_design), dict(ic.launches_shared_w)
+        want = {k: v * per_batch // CONVS_PER_BATCH * BATCHES
+                for k, v in SHARED_BY_DESIGN.items()}
+        check(n == per_batch * BATCHES and draws == 0,
+              f"{label}: {n} conv launches, {draws} draws in {BATCHES} "
+              "batches")
+        check(by == shared == want, f"{label}: conv launches by design "
+              f"{by}, with shared weights {shared}, expected {want}")
+        for p in probs:
+            check(p.shape == (BATCH, 10) and bool(torch.isfinite(p).all()),
+                  f"{label}: probabilities {tuple(p.shape)}")
+            check(float((p.sum(-1) - 1).abs().max()) < 1e-5,
+                  f"{label}: probabilities do not sum to 1")
+        steady = seconds[1:] or seconds
+        ms = 1e3 * sum(steady) / len(steady)
+        es = BATCH * samples * len(steady) / sum(steady)
+        metrics = {k: round(float(v), 6) for k, v in cls_metrics_compute(
+            metric_state).items()}
+        print(f"{label}: B={BATCH} x {samples} samples, steady {ms:.1f} "
+              f"ms/batch ({', '.join(f'{1e3 * t:.1f}' for t in seconds)}), "
+              f"{es:.0f} example-samples/s; conv launches {n} ({by}), all "
+              f"with shared weights; metrics {json.dumps(metrics)}",
+              flush=True)
+        launches[label], steady_ms[label] = n, ms
+
+    # each distinct conv shape of a kernel-path forward, on its recorded
+    # inputs, against the plain version (float64 library convs)
+    err = 0
+    x = torch.as_tensor(data[0][0], device=dev)
+    for method, st, samples in (("mcdropout", mc, SAMPLES),
+                                ("pointwise", pw, 1),
+                                ("sgld", ens, MEMBERS)):
+        seen, calls = {}, [0]
+
+        def record(real, *args, **kwargs):
+            out = real(*args, **kwargs)
+            calls[0] += 1
+            key = (tuple(args[0].shape), tuple(args[2].shape),
+                   tuple(args[8]), str(args[9]))
+            seen.setdefault(key, (args, kwargs, out))
+            return out
+
+        with torch.no_grad(), conv_route(record, "int_conv"):
+            mc_predict(models[method], st, x, samples=samples,
+                       ensemble=method == "sgld",
+                       generator=torch.Generator(device=dev).manual_seed(7))
+        check(calls[0] == CONVS_PER_BATCH * (MEMBERS if method == "sgld"
+                                             else 1) and len(seen) == 11,
+              f"{method}: {calls[0]} convs, {len(seen)} distinct shapes")
+        for key, (args, kwargs, out) in seen.items():
+            err = max(err, _codes_err(out, ic.int_conv_plain(
+                *args, **kwargs), f"{method} conv x{key[0]} w{key[1]}"))
+        print(f"{method}: each of the forward's {len(seen)} distinct conv "
+              f"shapes ({calls[0]} convs) == its plain version on the "
+              "recorded inputs", flush=True)
+        del seen
+        torch.cuda.empty_cache()
+
+    # one whole forward per method at a small batch: kernel path against
+    # plain path (the convs through int_conv_plain) and card against CPU,
+    # the same masks from the same seeded generator, at every cut
+    cpu = torch.device("cpu")
+    xs = x[:SMALL_BATCH]
+    for method, st, samples in (("mcdropout", mc, SMALL_SAMPLES),
+                                ("pointwise", pw, 1),
+                                ("sgld", ens, MEMBERS)):
+        st_cpu = to_device(st, cpu)
+
+        def run(state_, x_, up_to):
+            masks = seeded_masks(dev, seed + 65, samples)
+            return mc_predict(models[method], state_, x_, samples=samples,
+                              ensemble=method == "sgld", masks=masks,
+                              up_to=up_to)
+
+        with torch.no_grad():
+            for cut in CUTS + (None,):
+                a = run(st, xs, cut)
+                with conv_route(lambda _real, *args, **kw:
+                                ic.int_conv_plain(*args, **kw), "int_conv"):
+                    b = run(st, xs, cut)
+                _same_outputs(a, b, f"{method} kernel vs plain at {cut}")
+                c = run(st_cpu, xs.cpu(), cut)
+                if cut is None:
+                    d = float((a.cpu() - c).abs().max())
+                    check(d <= 1e-6, f"{method}: card and CPU probabilities "
+                          f"differ by {d}")
+                else:
+                    _same_outputs(a, c, f"{method} card vs CPU at {cut}")
+        print(f"{method}: B={SMALL_BATCH} x {samples}: kernel path == plain "
+              "path at every cut and in probabilities; card == CPU",
+              flush=True)
+    return launches, steady_ms, err, (models, mc, data)
+
+
+def seeded_masks(dev, seed, samples):
+    """MC-Dropout masks from a generator on the card seeded anew, so that
+    two forwards draw the same masks."""
+    return BernoulliMasks(torch.Generator(device=dev).manual_seed(seed),
+                          samples)
+
+
+def phase_methods_profile(models, mc, data, seed, dev):
+    """One MC-Dropout batch (B=256, S=100) under torch.profiler: device
+    time by kernel, and the device's idle share."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 66)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _state, _probs, secs = evaluate(models["mcdropout"], mc, data[:1],
+                                        SAMPLES, gen, dev)
+    report_profile(prof, 1e6 * secs[0], "profiled MC-Dropout batch")
+
+
+def phase_shared_conv_times(seed, dev=torch.device("cuda")):
+    """The conv kernel with shared weights (the new paths' layout: per-sample
+    x (S, B, H, W, cin), one set of weights) at each conv shape of an
+    MC-Dropout forward at B=256, S=100 (the stem as one sample), bitwise
+    against its plain version on random codes and timed against it in
+    turns; its bound per shape, the weights counted once. Returns the
+    per-batch (ms, plain_ms, bound_ms, bound_by) of the forward's 20
+    convs, and the largest code difference."""
+    g = torch.Generator(device=dev).manual_seed(seed + 71)
+    tot = dict(ms=0.0, plain=0.0, bytes=0, ops=0)
+    err = 0
+    for shape in CONV_SHAPES:
+        name, cin, cout, k, stride, hw, shared, n = shape
+        s = 1 if shared else SAMPLES
+        lead = (BATCH,) if shared else (SAMPLES, BATCH)
+        x = torch.randint(-127, 128, lead + (hw, hw, cin), generator=g,
+                          device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, k, cin, cout), generator=g,
+                          device=dev, dtype=torch.int8)
+        bias = torch.randn((cout,), generator=g, device=dev) * 0.5
+        st, pads = (stride, stride), [(k // 2, k // 2)] * 2
+        a = (x, _f32(0.0794982761, dev), w, _f32(0.00115220679, dev),
+             _i32(-6, dev), bias, _f32(0.1874899715, dev), _i32(67, dev), st,
+             pads, 0, 127, True)
+        plan = ic.conv_plan(x, w, st, pads)
+        want = ic.int_conv_plain(*a)
+        err = max(err, _codes_err(ic.int_conv(*a), want,
+                                  f"shared weights {name}"))
+        del want
+
+        def kernel():
+            ic.int_conv(*a)
+
+        def plain():
+            ic.int_conv_plain(*a)
+
+        t = [cuda_ms(plain, iters=3, warmup=1), cuda_ms(kernel),
+             cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        ho = (hw + 2 * (k // 2) - k) // stride + 1
+        read = _rows_read(hw, k, stride, ho)
+        nbytes = (s * BATCH * read * read * cin + w.numel()
+                  + s * BATCH * ho * ho * cout + 4 * cout)
+        ops = 2 * s * BATCH * ho * ho * k * k * cin * cout
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / INT8_OPS_PER_S
+        print(f"int_conv shared weights {name} x{n}/batch, S={s}: codes == "
+              f"plain; kernel ({plan.design}) {t[1]:.4f}/{t[2]:.4f} ms, "
+              f"plain {t[0]:.3f}/{t[3]:.3f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms by "
+              f"{'bytes' if bytes_ms >= ops_ms else 'operations'} ({nbytes} "
+              f"bytes {bytes_ms:.4f} ms, {ops} operations {ops_ms:.4f} ms), "
+              f"kernel at {max(bytes_ms, ops_ms) / ms:.1%} of its bound",
+              flush=True)
+        for key, v in (("ms", ms), ("plain", plain_ms), ("bytes", nbytes),
+                       ("ops", ops)):
+            tot[key] += n * v
+        del x, w, a
+        torch.cuda.empty_cache()
+    bytes_ms = 1e3 * tot["bytes"] / HBM_BYTES_PER_S
+    ops_ms = 1e3 * tot["ops"] / INT8_OPS_PER_S
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"int_conv shared weights per MC-Dropout batch ({CONVS_PER_BATCH} "
+          f"convs): kernel {tot['ms']:.3f} ms, plain {tot['plain']:.1f} ms, "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms by {bound_by} "
+          f"({tot['bytes']} bytes {bytes_ms:.4f} ms, {tot['ops']} operations "
+          f"{ops_ms:.4f} ms)")
+    return (tot["ms"], tot["plain"], max(bytes_ms, ops_ms), bound_by), err
 
 
 # Philox-4x32-10's multipliers as cuobjdump prints them (signed 32-bit
@@ -1369,6 +1688,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(model, state, args.seed, dev)
+    with Phase("methods"):
+        m_launches, m_ms, m_err, (m_models, m_mc, m_data) = phase_methods(
+            args.seed, state, plan, dev)
+        torch.cuda.empty_cache()
+    with Phase("methods_profile"):
+        phase_methods_profile(m_models, m_mc, m_data, args.seed, dev)
+        del m_models, m_mc, m_data
+        torch.cuda.empty_cache()
     with Phase("bbb_dense"):
         dense_err = phase_bbb_dense(args.seed, dev)
     with Phase("train"):
@@ -1380,6 +1707,9 @@ def main(argv=None) -> int:
             state, plan, SAMPLES, args.seed)
         d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
         conv_times = phase_conv_times(args.seed)
+        shared_times, shared_err = phase_shared_conv_times(args.seed)
+    print("new paths, steady ms per batch: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in m_ms.items()))
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
@@ -1401,7 +1731,17 @@ def main(argv=None) -> int:
                         conv_errs[key]),
         "ms": conv_times[key][0], "plain_ms": conv_times[key][1],
         "bound_ms": conv_times[key][2], "bound_by": conv_times[key][3],
-        "library_ms": None} for key in ("all", "halo", "pixel", "im2col")]}))
+        "library_ms": None} for key in ("all", "halo", "pixel", "im2col")]
+        + [{
+        # the conv kernel with one set of weights for every sample (weight
+        # sample stride 0), on the MC-Dropout, pointwise and ensemble
+        # paths: their launches; its time per MC-Dropout batch
+        "name": "int_conv/shared_w", "route": "cuda",
+        "source": CONV_SOURCE, "replaces": CONV_REPLACES,
+        "launches": sum(m_launches.values()),
+        "max_abs_err": max(m_err, shared_err), "ms": shared_times[0],
+        "plain_ms": shared_times[1], "bound_ms": shared_times[2],
+        "bound_by": shared_times[3], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 of qbn_tpu/models/layers.py).
 
 Only the fields that the ported paths read are kept (INT evaluation of a
-trained checkpoint, float Bayes-by-backprop training); `Config.from_json`
+converted checkpoint, float Bayes-by-backprop training); `Config.from_json`
 ignores the other keys of an experiment's config.json. `tpu_fused` keeps
 qbn_tpu's name so that a config.json carries across; in the port it routes
 the BBB local-reparametrisation dense layers through the hand-written CUDA
@@ -37,7 +37,8 @@ class Config:
     lr_schedule: str = "cosine"           # cosine | constant
     # Bayesian knobs
     sigma_prior: float = 0.05             # BBB prior std
-    samples: int = 20                     # MC samples at eval
+    p: float = 0.2                        # MC-Dropout rate
+    samples: int = 20                     # MC samples / ensemble size
     # data
     input_size: Tuple[int, ...] = (32, 32, 3)   # NHWC
     output_size: int = 10

@@ -3,7 +3,11 @@
 qbn_tpu keeps a model's state as flax variable collections: nested dicts
 ('params', 'batch_stats', 'quant', 'qconst', 'kl', ...) with array leaves.
 The port keeps the same nesting and key names with torch tensor leaves, so
-a module finds its constants under the same path as its flax counterpart.
+a module finds its constants under the same path as its flax counterpart:
+MC-Dropout's multiply grid (qconst 'mul_scale', 'mul_zp' of each dropout
+site) like any other constant, and an SGHMC ensemble stacked by qbn_tpu's
+`stack_variables` as it is, every leaf keeping its leading member axis
+(evaluation/ensemble.py).
 """
 
 from __future__ import annotations

@@ -29,7 +29,13 @@
 // (B, H, W, S*C) of the MC forward and the per-sample layout (S, B, H, W, C)
 // of K3's entry are the same kernel with other strides, and a sample
 // stride of 0 is the shared-x stem (one image, S weight samples). Weights
-// are (S, kh, kw, cin, cout) int8 as the draw kernel writes them. Taps
+// are (S, kh, kw, cin, cout) int8 as the draw kernel writes them, at a
+// sample stride w_ss = K * cout; a weight sample stride of 0 is the mirror
+// case, one set of weights for every sample (qbn_tpu's int_conv under its
+// vmap rule for per-sample x and shared w: MC-Dropout's masked
+// activations, pointwise, an ensemble member), which the samples keep on
+// the sample axis instead of folding S * B images into the pixel tiles.
+// The pixel body then transposes the one weight slice once per CTA. Taps
 // outside the image read code 0, the activation zero point, which adds
 // nothing to the sum or the window sum. Offsets are 64-bit.
 //
@@ -121,7 +127,8 @@ struct QbnConvArgs {
   const int8_t* x;
   long long x_sb, x_sh, x_sw, x_ss;   // element strides of (b, h, w, s)
   long long B, H, W, cin;
-  const int8_t* w;                    // (S, kh, kw, cin, cout)
+  const int8_t* w;                    // (S, kh, kw, cin, cout) or shared
+  long long w_ss;                     // weight sample stride: K*cout, or 0
   long long S, kh, kw, cout, stride, pad, Ho, Wo;
   int8_t* out;
   long long o_sb, o_sh, o_sw, o_ss;   // element strides of (b, ho, wo, s)
@@ -370,7 +377,10 @@ __device__ __forceinline__ void conv_epilogue(
 
 // -- the im2col body ------------------------------------------------------
 
-template <int NT>
+// WS: one set of weights for every sample (weight sample stride 0). A
+// template argument rather than the runtime stride, which measured slower
+// on the H100 here: the per-sample instantiation keeps its code as it was.
+template <int NT, bool WS>
 __global__ void __launch_bounds__(kThreads)
 int_conv_kernel(const QbnConvArgs a) {
   constexpr int BN = 8 * NT;
@@ -424,7 +434,7 @@ int_conv_kernel(const QbnConvArgs a) {
     acc[0][j][0] = acc[0][j][1] = acc[0][j][2] = acc[0][j][3] = 0;
   int rsum = 0;
 
-  const int8_t* wsam = a.w + (long long)s * K * cout;
+  const int8_t* wsam = WS ? a.w : a.w + (long long)s * K * cout;
   const int g = lane >> 2, t = lane & 3;
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
@@ -536,7 +546,7 @@ __device__ __forceinline__ void load_weight_chunk(const QbnConvArgs& a,
                                                   int n0, int k0, int kc,
                                                   int K) {
   const int cout = (int)a.cout;
-  const int8_t* wsam = a.w + (long long)s * K * cout;
+  const int8_t* wsam = a.w + (long long)s * a.w_ss;
   const int rows = min(kc, K - k0);
   if (BN == cout) {   // one contiguous run; K * cout % 16 == 0
     const int8_t* src = wsam + (long long)k0 * cout;
@@ -860,11 +870,14 @@ int_conv_pixel_kernel(const QbnConvArgs a) {
   const int K = (int)(a.kh * a.kw * a.cin);
   const int kp = (K + kBK - 1) / kBK * kBK, btp = kp + 16;
   const int sg = (int)a.sg, pitch = (int)a.pitch, spitch = sg * BN + 16;
-  // [A tile BM x pitch | Bt sg x BN x btp | staged codes BM x spitch |
-  //  rowsum | out_off | x_off]
+  // shared weights (sample stride 0): one transposed slice, loaded once,
+  // serves every group
+  const bool w_shared = a.w_ss == 0;
+  // [A tile BM x pitch | Bt (sg, or 1 when shared) x BN x btp | staged
+  //  codes BM x spitch | rowsum | out_off | x_off]
   int8_t* As = smem;
   int8_t* Bt = As + BM * pitch;
-  int8_t* St = Bt + sg * BN * btp;
+  int8_t* St = Bt + (w_shared ? 1 : sg) * BN * btp;
   int* rowsum = reinterpret_cast<int*>(St + BM * spitch);
   long long* out_off = reinterpret_cast<long long*>(rowsum + BM);
   long long* x_off = out_off + BM;
@@ -974,13 +987,15 @@ int_conv_pixel_kernel(const QbnConvArgs a) {
       }
       cp_commit();
     }
-    {  // Bt: the group's weight slices, transposed, zero past K
-      const int kq_n = kp / 4, nq_n = BN / 4;
-      for (int idx = tid; idx < ng * kq_n * nq_n; idx += kThreads) {
+    if (!w_shared || s0 == s_begin) {
+      // Bt: the group's weight slices (the one shared slice, once),
+      // transposed, zero past K
+      const int kq_n = kp / 4, nq_n = BN / 4, n_sl = w_shared ? 1 : ng;
+      for (int idx = tid; idx < n_sl * kq_n * nq_n; idx += kThreads) {
         const int nq = idx % nq_n, rest = idx / nq_n;
         const int kq = rest % kq_n, sl = rest / kq_n;
         const int8_t* src =
-            a.w + (long long)(s0 + sl) * K * cout + n0 + 4 * nq;
+            a.w + (long long)(s0 + sl) * a.w_ss + n0 + 4 * nq;
         uint32_t rows[4], cols[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -1004,7 +1019,7 @@ int_conv_pixel_kernel(const QbnConvArgs a) {
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-      const int8_t* bt = Bt + (sl * BN + g) * btp + 4 * t;
+      const int8_t* bt = Bt + ((w_shared ? 0 : sl) * BN + g) * btp + 4 * t;
       if (SHARED) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
@@ -1099,10 +1114,14 @@ template <int NT>
 int launch(const QbnConvArgs& a, long long m_tiles, cudaStream_t stream) {
   constexpr int BN = 8 * NT;
   const long long n_tiles = (a.cout + BN - 1) / BN;
-  if (m_tiles > 65535 || n_tiles > 65535 || a.S > 2147483647LL)
+  if (m_tiles > 65535 || n_tiles > 65535 || a.S > 2147483647LL ||
+      (a.w_ss != 0 && a.w_ss != a.kh * a.kw * a.cin * a.cout))
     return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)a.S, (unsigned)m_tiles, (unsigned)n_tiles);
-  int_conv_kernel<NT><<<grid, kThreads, 0, stream>>>(a);
+  if (a.w_ss == 0)
+    int_conv_kernel<NT, true><<<grid, kThreads, 0, stream>>>(a);
+  else
+    int_conv_kernel<NT, false><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

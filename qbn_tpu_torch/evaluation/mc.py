@@ -1,11 +1,23 @@
-"""Monte-Carlo predictive evaluation of a converted BBB model (port of the
-INT merged path of qbn_tpu/evaluation/mc.py).
+"""Monte-Carlo predictive evaluation of converted models (port of the INT
+paths of qbn_tpu/evaluation/mc.py), for the four methods:
 
-Per batch: ONE launch of the posterior-draw kernel draws S int8 weight
-samples of every stochastic layer (`draw_sampled_weights`), ONE forward
-in the merged layout computes every sample (`mc_predict`), and the
-probabilities are averaged over samples (`aggregate`) and folded into the
-metric state. `evaluate` is the entry point.
+* Bayes-by-backprop: per batch ONE launch of the posterior-draw kernel
+  draws S int8 weight samples of every stochastic layer
+  (`draw_sampled_weights`), and ONE forward in the merged layout computes
+  every sample;
+* MC-Dropout: ONE forward of the deterministic weights, S masked samples
+  of activations from the first dropout site on (qbn_tpu vmaps the
+  forward over S keys; its convs then fold the samples into the batch,
+  the port's keep them on the conv kernel's sample axis);
+* pointwise: one forward;
+* SGHMC ensembles: one forward per member of a stacked state
+  (evaluation/ensemble.py).
+
+`mc_predict` gives the outputs with the sample axis in front, `aggregate`
+the predictive (classification: the mean of the probabilities;
+regression: E[mu] and Var[mu] (ddof=1) + E[var]), folded into the metric
+state. `evaluate` is the entry point and dispatches on the model's
+`method` (models/factory.py).
 """
 
 from __future__ import annotations
@@ -16,7 +28,10 @@ from typing import Iterable, List, Optional, Sequence
 import torch
 
 from qbn_tpu_torch.convert import to_device
+from qbn_tpu_torch.evaluation.ensemble import member, members
+from qbn_tpu_torch.models.architectures import ResNet
 from qbn_tpu_torch.ops.sample_weights import QPARAM_KEYS, draw_layers, pack_layers
+from qbn_tpu_torch.ops.stochastic import BernoulliMasks
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.utils import resolve_device
 
@@ -83,50 +98,119 @@ def sampled_tree(plan, codes):
     return out
 
 
+def _forward(model, x, variables, masks=None, up_to=None):
+    """One int-mode forward of any of the architectures."""
+    if isinstance(model, ResNet):
+        return model(x, variables, up_to=up_to, masks=masks)
+    if up_to is not None:
+        raise ValueError("up_to cuts exist on the ResNet only")
+    return model(x, variables, mode="int", masks=masks)
+
+
+def _each(out, fn):
+    """fn on an output, or on each of a regression model's (mu, var)."""
+    return tuple(map(fn, out)) if isinstance(out, tuple) else fn(out)
+
+
 def mc_predict(model, state, x, *, samples: int, plan=None,
                generator: Optional[torch.Generator] = None,
-               presampled=None, up_to: Optional[str] = None):
-    """All-samples predictive outputs (S, B, classes): one merged-layout
-    forward over weights drawn here (or given as `presampled`)."""
-    if presampled is None:
-        presampled = draw_sampled_weights(
-            state, plan or presample_plan(state), samples, generator)
-    out = model(x, {**state, "sampled": presampled}, up_to=up_to)
+               presampled=None, up_to: Optional[str] = None,
+               ensemble: bool = False, masks=None):
+    """All-samples predictive outputs with the sample axis in front:
+    (S, B, classes), or for regression (mu, var), (S, B, out) each; or
+    the codes at an `up_to` cut (a list of the members' with `ensemble`).
+
+    * ensemble: `state` stacked on a member axis of `samples` members;
+    * Bayes-by-backprop (a stochastic model): weights drawn here from
+      `generator` following `plan` (or given as `presampled`), one
+      merged-layout forward;
+    * MC-Dropout (a model with dropout sites): one forward, its masks from
+      `masks` (a mask source, ops/stochastic.py) or drawn from
+      `generator`;
+    * pointwise: one forward, its output repeated S times (qbn_tpu runs
+      the same deterministic forward under S keys)."""
+    if ensemble:
+        if members(state) != samples:
+            raise ValueError(f"an ensemble of {members(state)} members "
+                             f"evaluated as {samples} samples")
+        outs = [_forward(model, x, member(state, m), up_to=up_to)
+                for m in range(samples)]
+        if up_to is not None:
+            return outs
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
+    if model.stochastic:
+        if presampled is None:
+            presampled = draw_sampled_weights(
+                state, plan or presample_plan(state), samples, generator)
+        out = _forward(model, x, {**state, "sampled": presampled},
+                       up_to=up_to)
+        if up_to is not None:
+            return out
+        return _each(out, lambda o: o.transpose(0, 1))   # (B, S) -> (S, B)
+    if model.dropout_p > 0:
+        return _forward(model, x, state, up_to=up_to,
+                        masks=masks or BernoulliMasks(generator, samples))
+    out = _forward(model, x, state, up_to=up_to)
     if up_to is not None:
         return out
-    return out.transpose(0, 1)               # (B, S, C) -> (S, B, C)
+    return _each(out, lambda o: o.unsqueeze(0).expand(samples, *o.shape))
 
 
-def aggregate(outs):
-    """Classification predictive: mean of probabilities over samples."""
-    return torch.mean(outs, dim=0)
+def aggregate(outs, task: str = "classification"):
+    """The predictive over the sample axis: classification, the mean of
+    the probabilities; regression, (E[mu], Var[mu] (ddof=1, as torch.var)
+    + E[var]), the variance term dropped at one sample."""
+    if task == "classification":
+        return torch.mean(outs, dim=0)
+    mu, var = outs
+    mean = torch.mean(mu, dim=0)
+    total = torch.mean(var, dim=0)
+    if mu.shape[0] > 1:
+        total = torch.var(mu, dim=0, correction=1) + total
+    return mean, total
 
 
 def evaluate(model, state, batches: Iterable, samples: int,
              generator: Optional[torch.Generator] = None, device="cuda"):
-    """INT8 MC evaluation over (x, y) batches: x (B, H, W, C) float32
-    images, y (B,) labels (numpy or torch).
+    """INT8 MC evaluation over (x, y) batches of a model from
+    models/factory.py (its `method` and `task` choose the path): x (B, ...)
+    float32 inputs, y (B,) labels or regression targets (numpy or torch).
+    `generator` draws the posterior weights (BBB) or the dropout masks
+    (MC-Dropout; a generator on the card draws them there); an SGHMC
+    state holds `samples` stacked members.
 
-    Returns (metric_state, [aggregated (B, classes) probabilities per
-    batch], [seconds per batch, host clock around work that ends in a
-    device synchronise])."""
+    Returns (metric_state, [aggregated output per batch: (B, classes)
+    probabilities, or (mean, var)], [seconds per batch, host clock
+    around work that ends in a device synchronise])."""
     device = resolve_device(device)
     state = to_device(state, device)
-    plan = presample_plan(state)
-    metric_state = M.cls_metrics_init(device=device)
-    probs: List[torch.Tensor] = []
+    method, regression = model.method, model.task == "regression"
+    plan = presample_plan(state) if method == "bbb" else None
+    masks = (BernoulliMasks(generator, samples) if method == "mcdropout"
+             else None)
+    metric_state = (M.reg_metrics_init(device=device) if regression
+                    else M.cls_metrics_init(device=device))
+    outputs: List = []
     seconds: List[float] = []
     with torch.no_grad():
         for x, y in batches:
             t0 = time.perf_counter()
             x = torch.as_tensor(x, dtype=torch.float32, device=device)
-            y = torch.as_tensor(y, dtype=torch.int64, device=device)
+            y = torch.as_tensor(y, device=device,
+                                dtype=torch.float32 if regression
+                                else torch.int64)
             outs = mc_predict(model, state, x, samples=samples, plan=plan,
-                              generator=generator)
-            agg = aggregate(outs)
-            metric_state = M.cls_metrics_update(metric_state, agg, y)
+                              generator=generator, masks=masks,
+                              ensemble=method == "sgld")
+            agg = aggregate(outs, model.task)
+            if regression:
+                metric_state = M.reg_metrics_update(metric_state, *agg, y)
+            else:
+                metric_state = M.cls_metrics_update(metric_state, agg, y)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             seconds.append(time.perf_counter() - t0)
-            probs.append(agg)
-    return metric_state, probs, seconds
+            outputs.append(agg)
+    return metric_state, outputs, seconds

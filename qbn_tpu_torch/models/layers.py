@@ -13,14 +13,20 @@ evaluate on one weight sample, drawing from a noise source, and write
 their KL into the `kl` dict given) or 'int'. `init` makes a block's
 'params' subtree with qbn_tpu's init laws from a torch.Generator.
 
-INT Monte-Carlo evaluation runs every posterior sample in ONE forward:
-conv activations are (B, H, W, S*C) int8 codes with sample-major channel
-groups, dense activations (B, S, F) (MergedQTensor). The stem enters the
-layout from the shared (B, H, W, C) input (QTensor).
+INT Monte-Carlo evaluation of Bayes-by-backprop runs every posterior
+sample in ONE forward: conv activations are (B, H, W, S*C) int8 codes with
+sample-major channel groups, dense activations (B, S, F) (MergedQTensor).
+The stem enters the layout from the shared (B, H, W, C) input (QTensor).
+The deterministic blocks (MC-Dropout, pointwise, an ensemble member) take
+one set of weights: a QTensor in, a QTensor out, computed once; after an
+MC-Dropout site the activations of the S samples lie on a leading axis,
+(S, B, H, W, C) or (S, B, F) (SampleQTensor), as qbn_tpu's QTensor under
+its vmap over samples.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -30,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from qbn_tpu_torch.config import QuantConfig
-from qbn_tpu_torch.ops.integer import int_conv_merged, int_dense_merged
+from qbn_tpu_torch.ops.integer import (
+    int_conv, int_conv_merged, int_dense, int_dense_merged)
 from qbn_tpu_torch.ops.stochastic import (
     conv_nhwc, kl_divergence, local_reparam_conv, local_reparam_dense_auto,
     sample_weights, softplus)
@@ -53,6 +60,15 @@ class MergedQTensor:
     scale: torch.Tensor
     zp: torch.Tensor
     s: int = 1
+
+
+@dataclass
+class SampleQTensor:
+    """Quantised activations of S samples on a leading axis: conv
+    (S, B, H, W, C), dense (S, B, F); one scale/zp for every sample."""
+    codes: torch.Tensor
+    scale: torch.Tensor
+    zp: torch.Tensor
 
 
 def scope(variables, name: str):
@@ -111,6 +127,17 @@ def _init_params(generator, kshape, features, stochastic, std_init,
     return params
 
 
+def _sampled(variables):
+    """A Bayes-by-backprop block's drawn weight codes, (S, *kernel shape)."""
+    sampled = variables.get("sampled")
+    if sampled is None:
+        raise NotImplementedError(
+            "a Bayes-by-backprop block in int mode takes its drawn weights "
+            "('sampled', evaluation.mc.draw_sampled_weights); qbn_tpu's "
+            "draw inside the forward is not ported")
+    return sampled["w"]
+
+
 def _sow_kl(kl, kernel, sp, sigma_prior):
     """KL of the posterior against the zero-mean sigma_prior Gaussian prior
     into kl['kl'] (qbn_tpu's sow into the 'kl' collection)."""
@@ -160,15 +187,30 @@ class DenseBlock(nn.Module):
 
     def _int_forward(self, x, variables):
         qc = variables["qconst"]["q"]
-        presampled = variables["sampled"]["w"]          # (S, F, O)
         bias = variables["params"]["bias"] if self.use_bias else None
         a_lo, a_hi = self.quant.a_bounds
-        codes = int_dense_merged(
-            x.codes, x.scale, presampled, qc["add_scale"], qc["add_zp"],
-            bias, qc["act_scale"], qc["act_zp"], a_lo, a_hi, relu=self.relu,
-            shared_x=isinstance(x, QTensor))
-        return MergedQTensor(codes, qc["act_scale"], qc["act_zp"],
-                             s=presampled.shape[0])
+        if self.stochastic:
+            presampled = _sampled(variables)            # (S, F, O)
+            codes = int_dense_merged(
+                x.codes, x.scale, presampled, qc["add_scale"], qc["add_zp"],
+                bias, qc["act_scale"], qc["act_zp"], a_lo, a_hi,
+                relu=self.relu, shared_x=isinstance(x, QTensor))
+            return MergedQTensor(codes, qc["act_scale"], qc["act_zp"],
+                                 s=presampled.shape[0])
+        w = qc["w_codes"]
+        if isinstance(x, MergedQTensor):
+            # merged activations through a deterministic dense: the shared
+            # weights broadcast over the sample groups
+            codes = int_dense_merged(
+                x.codes, x.scale, w.expand(x.s, *w.shape), qc["w_scale"],
+                qc["w_zp"], bias, qc["act_scale"], qc["act_zp"], a_lo, a_hi,
+                relu=self.relu)
+        else:
+            codes = int_dense(
+                x.codes, x.scale, w, qc["w_scale"], qc["w_zp"], bias,
+                qc["act_scale"], qc["act_zp"], a_lo, a_hi, relu=self.relu)
+        return dataclasses.replace(x, codes=codes, scale=qc["act_scale"],
+                                   zp=qc["act_zp"])
 
 
 class ConvBlock(nn.Module):
@@ -223,15 +265,68 @@ class ConvBlock(nn.Module):
 
     def _int_forward(self, x, variables):
         qc = variables["qconst"]["q"]
-        presampled = variables["sampled"]["w"]  # (S, kh, kw, cin, cout)
         a_lo, a_hi = self.quant.a_bounds
-        out = int_conv_merged(
-            x.codes, x.scale, presampled, qc["add_scale"], qc["add_zp"],
-            qc["bias_f"], qc["act_scale"], qc["act_zp"], self.strides,
-            [(self.padding, self.padding)] * 2, a_lo, a_hi, relu=self.relu,
-            shared_x=isinstance(x, QTensor))
-        return MergedQTensor(out, qc["act_scale"], qc["act_zp"],
-                             s=presampled.shape[0])
+        pad = [(self.padding, self.padding)] * 2
+        if self.stochastic:
+            presampled = _sampled(variables)    # (S, kh, kw, cin, cout)
+            out = int_conv_merged(
+                x.codes, x.scale, presampled, qc["add_scale"], qc["add_zp"],
+                qc["bias_f"], qc["act_scale"], qc["act_zp"], self.strides,
+                pad, a_lo, a_hi, relu=self.relu,
+                shared_x=isinstance(x, QTensor))
+            return MergedQTensor(out, qc["act_scale"], qc["act_zp"],
+                                 s=presampled.shape[0])
+        args = (x.scale, qc["w_codes"], qc["w_scale"], qc["w_zp"],
+                qc["bias_f"], qc["act_scale"], qc["act_zp"], self.strides,
+                pad, a_lo, a_hi)
+        if isinstance(x, MergedQTensor):
+            # merged activations through a deterministic conv: one set of
+            # weights for every sample group
+            out = int_conv_merged(x.codes, *args, relu=self.relu)
+        else:
+            out = int_conv(x.codes, *args, relu=self.relu)
+        return dataclasses.replace(x, codes=out, scale=qc["act_scale"],
+                                   zp=qc["act_zp"])
+
+
+class BernoulliDropout(nn.Module):
+    """Always-on Bernoulli dropout, int mode (port of the int branch of
+    qbn_tpu's BernoulliDropout, the MC-Dropout posterior): masks per
+    (sample, image, channel) for 4-D activations, per element for dense
+    ones, from `masks(shape, keep, device)` ((S, *shape) float32, see
+    ops/stochastic.py). The mask is quantised on the multiply's output grid
+    (mul_scale, mul_zp) and dequantised, the activations dequantised,
+    multiplied and requantised to that grid; the output scale is
+    mul_scale / (1 - p). On a grid of 2 or more (which 4-bit activations
+    reach) the kept mask 1.0 rounds to the zero point and every activation
+    goes to zero, as in qbn_tpu and the reference.
+
+    A shared input (QTensor) leaves as S samples (SampleQTensor)."""
+
+    def __init__(self, p: float = 0.0, quant: QuantConfig = QuantConfig()):
+        super().__init__()
+        self.p, self.quant = p, quant
+
+    def forward(self, x, variables, masks):
+        qc = variables["qconst"]["q"]
+        ms, mz = qc["mul_scale"], qc["mul_zp"]
+        a_lo, a_hi = self.quant.a_bounds
+        per_sample = isinstance(x, SampleQTensor)
+        shape = x.codes.shape[1:] if per_sample else x.codes.shape
+        mask_shape = ((shape[0], 1, 1, shape[-1]) if len(shape) > 2
+                      else tuple(shape))
+        mask = masks(mask_shape, 1.0 - self.p, x.codes.device)
+        if per_sample and mask.shape[0] != x.codes.shape[0]:
+            raise ValueError(f"{mask.shape[0]} masks for "
+                             f"{x.codes.shape[0]} samples")
+        mz_f = mz.to(torch.float32)
+        mask_q = torch.clamp(torch.round(mask / ms) + mz_f, 0, 255)
+        mask_deq = (mask_q.to(torch.int32).to(torch.float32) - mz_f) * ms
+        prod = dequantize_codes(x.codes, x.scale) * mask_deq
+        codes = quantize_codes(prod, ms, mz, a_lo, a_hi)
+        multiplier = torch.tensor(1.0 / (1.0 - self.p), dtype=torch.float32,
+                                  device=ms.device)
+        return SampleQTensor(codes, ms * multiplier, mz)
 
 
 class ResidualAdd(nn.Module):
@@ -252,7 +347,7 @@ class ResidualAdd(nn.Module):
         codes = quantize_codes(total, s, z, a_lo, a_hi)
         if self.relu:
             codes = torch.clamp(codes, min=0)   # u >= 0 <=> q >= zp
-        return MergedQTensor(codes, s, z, s=a.s)
+        return dataclasses.replace(a, codes=codes, scale=s, zp=z)
 
 
 class InputQuant(nn.Module):
@@ -281,33 +376,47 @@ def dequant(x):
 
 
 def max_pool(x, window: int = 2, stride: int = 2):
-    """Max pool of float NHWC activations, 'VALID' windows. (Pooling of
-    int codes goes with the int LeNet, not ported yet.)"""
-    if not isinstance(x, torch.Tensor):
-        raise NotImplementedError("max_pool of int codes is not ported")
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
-    return y.permute(0, 2, 3, 1)
+    """Max pool over (H, W), 'VALID' windows: float NHWC activations, or
+    int codes (..., H, W, C) of any of the code layouts, pooled by max
+    directly as qbn_tpu's reduce_window does."""
+    if isinstance(x, torch.Tensor):
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+        return y.permute(0, 2, 3, 1)
+    h, w = x.codes.shape[-3:-1]
+    ho, wo = (h - window) // stride + 1, (w - window) // stride + 1
+    out = None
+    for i in range(window):
+        for j in range(window):
+            v = x.codes[..., i:i + (ho - 1) * stride + 1:stride,
+                        j:j + (wo - 1) * stride + 1:stride, :]
+            out = v if out is None else torch.maximum(out, v)
+    return dataclasses.replace(x, codes=out.contiguous())
 
 
-def avg_pool(x: MergedQTensor, window: int) -> MergedQTensor:
-    """Average pool of codes, rounding half to even (FBGEMM's quantised
-    avg-pool keeps scale/zp and rounds); windows that do not fit are
-    dropped, as with 'VALID' padding."""
-    b, h, w, c = x.codes.shape
+def avg_pool(x, window: int):
+    """Average pool of codes (..., H, W, C), rounding half to even
+    (FBGEMM's quantised avg-pool keeps scale/zp and rounds); windows that
+    do not fit are dropped, as with 'VALID' padding."""
+    *lead, h, w, c = x.codes.shape
     ho, wo = h // window, w // window
-    codes = x.codes[:, :ho * window, :wo * window].to(torch.int32)
-    summed = codes.reshape(b, ho, window, wo, window, c).sum(dim=(2, 4))
+    codes = x.codes[..., :ho * window, :wo * window, :].to(torch.int32)
+    summed = codes.reshape(*lead, ho, window, wo, window, c).sum(
+        dim=(-4, -2))
     pooled = torch.round(summed.to(torch.float32) / (window * window))
-    return MergedQTensor(pooled.to(torch.int8), x.scale, x.zp, s=x.s)
+    return dataclasses.replace(x, codes=pooled.to(torch.int8))
 
 
 def flatten(x):
     """Float (B, H, W, C) -> (B, H*W*C) in (h, w, c) order, as qbn_tpu's
-    NHWC activations flatten. Merged codes (B, H, W, S*C) -> (B, S, H*W*C):
-    per-sample flattening, so that the dense weights see the feature order
-    of one sample's (H, W, C)."""
+    NHWC activations flatten; codes likewise ((S, B, H, W, C) -> (S, B,
+    H*W*C)). Merged codes (B, H, W, S*C) -> (B, S, H*W*C): per-sample
+    flattening, so that the dense weights see the feature order of one
+    sample's (H, W, C)."""
     if isinstance(x, torch.Tensor):
         return x.reshape(x.shape[0], -1)
+    if not isinstance(x, MergedQTensor):
+        return dataclasses.replace(
+            x, codes=x.codes.reshape(*x.codes.shape[:-3], -1))
     b, h, w, sc = x.codes.shape
     c = sc // x.s
     codes = x.codes.reshape(b, h, w, x.s, c).permute(0, 3, 1, 2, 4)

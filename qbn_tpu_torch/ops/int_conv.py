@@ -17,11 +17,16 @@ Requantisation then runs in qbn_tpu's order: + bias, / out_scale, round
 half to even, + out_zp, clip to 0..255, quantised ReLU (max with out_zp),
 the sub-8-bit clip, - out_zp.
 
-On a CUDA tensor `int_conv_merged`, `mc_group_conv` and `int_conv_sums`
-launch the hand-written kernel of `csrc/int_conv.cu` (an int8 implicit
-GEMM on the tensor cores with exact int32 sums) or raise; there is no
-fallback. The kernel has three bodies, chosen by shape in `plan_conv`,
-never on failure: "halo" for the 3x3 convs with cin % 4 == 0 (the
+On a CUDA tensor `int_conv_merged`, `int_conv`, `mc_group_conv` and
+`int_conv_sums` launch the hand-written kernel of `csrc/int_conv.cu` (an
+int8 implicit GEMM on the tensor cores with exact int32 sums) or raise;
+there is no fallback. The kernel addresses activations and outputs by
+(batch, row, column, sample) strides and weights by a sample stride: K *
+cout for per-sample weights (Bayes-by-backprop), 0 for one set shared by
+every sample (`int_conv`: MC-Dropout, pointwise, an ensemble member; or
+4-D weights given to `int_conv_merged`). The kernel has three bodies,
+chosen by shape in `plan_conv`, never on failure: "halo" for the 3x3
+convs with cin % 4 == 0 (the
 activations of a tile of output pixels staged once in shared memory with
 their halo, the weights streamed through an async-copy ring), "pixel" for
 the shared-input stem with K <= 32 and the 1x1 convs with padding 0 (a CTA
@@ -60,6 +65,9 @@ _MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
 # kernel.
 launches = 0
 launches_by_design = {"halo": 0, "pixel": 0, "im2col": 0}
+# of those, the launches with one set of weights shared by every sample
+# (MC-Dropout, pointwise and ensemble members), by design
+launches_shared_w = {"halo": 0, "pixel": 0, "im2col": 0}
 
 
 # -- the plain versions ---------------------------------------------------
@@ -373,12 +381,15 @@ def _rings(k, bn):
         (128, 2), (64, 2), (32, 2)]
 
 
-def pixel_smem(bm, bn, kc, sg, pitch):
+def pixel_smem(bm, bn, kc, sg, pitch, w_slices=None):
     """Shared memory of the pixel body: the A tile (bm rows of pitch), the
-    group's transposed weights (sg x bn rows of kc + 16), the staged codes
+    transposed weights (w_slices x bn rows of kc + 16: the group's sg
+    samples, or 1 where every sample shares the weights), the staged codes
     (bm rows of sg * bn + 16), the rows' window sums and their output and
     input offsets."""
-    return bm * pitch + sg * bn * (kc + 16) + bm * (sg * bn + 16) + 20 * bm
+    w_slices = sg if w_slices is None else w_slices
+    return (bm * pitch + w_slices * bn * (kc + 16) + bm * (sg * bn + 16)
+            + 20 * bm)
 
 
 def _pixel_pitch(sg, cin, kc):
@@ -389,8 +400,10 @@ def _pixel_pitch(sg, cin, kc):
     return p if p % 32 == 16 else p + 16
 
 
-def _pixel_plan(cin, cout, k, shared_x, x_align, w_align, reason):
-    """The pixel body's plan, or None where it cannot run the shape."""
+def _pixel_plan(cin, cout, k, shared_x, shared_w, x_align, w_align,
+                reason):
+    """The pixel body's plan, or None where it cannot run the shape. With
+    shared weights one transposed slice serves every group."""
     bn = min(cout, 96)
     if cout % bn or bn % 8 or bn // 8 not in _LAYOUTS or w_align < 4:
         return None
@@ -402,7 +415,8 @@ def _pixel_plan(cin, cout, k, shared_x, x_align, w_align, reason):
         vx = max(v for v in (16, 8, 4) if cin % v == 0 and v <= x_align)
     for sg in range(_MAX_GROUP, 0, -1):
         pitch = kc + 16 if shared_x else _pixel_pitch(sg, cin, kc)
-        smem = pixel_smem(_PIXEL_BM, bn, kc, sg, pitch)
+        smem = pixel_smem(_PIXEL_BM, bn, kc, sg, pitch,
+                          1 if shared_w else sg)
         if smem <= _PIXEL_SMEM[bn // 8]:
             return ConvPlan("pixel", reason, bm=_PIXEL_BM, nt=bn // 8,
                             pitch=pitch, vx=vx, kc=kc, sg=sg,
@@ -412,11 +426,12 @@ def _pixel_plan(cin, cout, k, shared_x, x_align, w_align, reason):
 
 @functools.lru_cache(maxsize=None)
 def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
-              x_align=16, w_align=16):
+              x_align=16, w_align=16, shared_w=False):
     """The ConvPlan of one conv shape (per-sample input (h, w, cin), output
     channels cout, a kh x kw kernel). x_align / w_align: the largest of 16,
     8, 4, 2, 1 dividing the activations' base address and every element
-    stride, and the weights' base address."""
+    stride, and the weights' base address. shared_x / shared_w: one input,
+    or one set of weights, for every sample (a sample stride of 0)."""
     ho = (h + 2 * pad - kh) // stride + 1
     wo = (w + 2 * pad - kw) // stride + 1
     k = kh * kw * cin
@@ -426,11 +441,11 @@ def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
     if shared_x:
         if k > _KSTEP:
             return im2col(reason="shared input with K > 32")
-        return _pixel_plan(cin, cout, k, True, x_align, w_align,
+        return _pixel_plan(cin, cout, k, True, shared_w, x_align, w_align,
                            "shared input, K <= 32 (the stem)") or im2col(
             reason=f"shared input, {cout} output channels")
     if (kh, kw, pad) == (1, 1, 0):
-        return _pixel_plan(cin, cout, k, False, x_align, w_align,
+        return _pixel_plan(cin, cout, k, False, shared_w, x_align, w_align,
                            "1x1, padding 0") or im2col(
             reason=f"1x1 with cin {cin}, {cout} output channels")
     if (kh, kw, pad) != (3, 3, 1) or stride not in (1, 2):
@@ -486,6 +501,33 @@ def sample_groups(plan: ConvPlan, samples: int, tiles: int, sms: int):
     return sg, -(-groups // splits) * sg
 
 
+# CUDA's grid limits: x up to 2^31 - 1, y and z up to 65535
+_GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+
+
+def launch_grid(plan: ConvPlan, m: int, samples: int, cout: int,
+                sms: int = 132):
+    """The grid (x, y, z) a launch of `plan` takes for m output pixels per
+    sample (B * H' * W') and `samples` samples, as csrc/int_conv.cu
+    computes it: (samples, pixel tiles, channel tiles) on the halo and
+    im2col bodies, (pixel tiles, channel tiles, sample splits) on the pixel
+    body. Raises ValueError where a dimension passes CUDA's limits: the
+    samples ride the grid's x (or a loop of the pixel body), so that S
+    samples of B images never need more pixel tiles than B images do."""
+    m_tiles, n_tiles = -(-m // plan.bm), -(-cout // plan.bn)
+    if plan.design == "pixel":
+        _sg, s_cta = sample_groups(plan, samples, m_tiles * n_tiles, sms)
+        grid = (m_tiles, n_tiles, -(-samples // s_cta))
+    else:
+        grid = (samples, m_tiles, n_tiles)
+    for n, limit, what in zip(grid, _GRID_LIMITS, "xyz"):
+        if n > limit:
+            raise ValueError(
+                f"{m} output pixels per sample x {samples} samples need a "
+                f"grid {grid} past the kernel's limit in {what} ({limit})")
+    return grid
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -514,7 +556,7 @@ def _tables(plan: ConvPlan, device):
 
 _FIELDS = (
     "x", "x_sb", "x_sh", "x_sw", "x_ss", "B", "H", "W", "cin",
-    "w", "S", "kh", "kw", "cout", "stride", "pad", "Ho", "Wo",
+    "w", "w_ss", "S", "kh", "kw", "cout", "stride", "pad", "Ho", "Wo",
     "out", "o_sb", "o_sh", "o_sw", "o_ss", "res", "bias",
     "x_scale", "w_scale", "w_zp", "out_scale", "out_zp",
     "res_scale", "res_out_scale", "res_out_zp",
@@ -552,33 +594,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
-            out_strides, q=None, bias=None, residual=None, relu=False,
-            res_relu=False, a_lo=0, a_hi=127, raw=None, design=None):
-    """One launch of the kernel. x_strides / out_strides: element strides
-    of (b, h, w, sample); x_shape (B, H, W, cin); out_shape (Ho, Wo);
-    raw: (acc, winsum) int32 buffers for the debug entry. design: None
-    takes the plan's; "im2col" forces the im2col body on any shape (for
-    comparing the two designs; nothing on the main path passes it)."""
-    global launches
+def conv_args(x, x_strides, x_shape, w, samples, stride, pad, out_shape,
+              out, out_strides, q=None, bias=None, residual=None,
+              relu=False, res_relu=False, a_lo=0, a_hi=127, raw=None,
+              design=None, sms=132):
+    """(QbnConvArgs, ConvPlan) of one launch of the kernel on `sms` SMs, as
+    the kernel reads them. x_strides / out_strides: element strides of
+    (b, h, w, sample); x_shape (B, H, W, cin); w: (S, kh, kw, cin, cout)
+    per-sample weights (weight sample stride K * cout), or (kh, kw, cin,
+    cout) shared by all `samples` (weight sample stride 0); out_shape
+    (Ho, Wo); raw: (acc, winsum) int32 buffers for the debug entry.
+    design: None takes the plan's; "im2col" forces the im2col body on any
+    shape (for comparing the designs; nothing on the main path passes
+    it)."""
     b, h, wd, cin = x_shape
-    s, kh, kw, _cin, cout = w.shape
+    kh, kw, _cin, cout = w.shape[-4:]
     ho, wo = out_shape
     k = kh * kw * cin
     if k > _MAX_K:
         raise ValueError(f"K = {k} would overflow the int32 sums")
+    shared_w = w.ndim == 4
     plan = plan_conv(h, wd, cin, cout, kh, kw, stride, pad,
                      x_strides[3] == 0, _align(x.data_ptr(), x_strides),
-                     _align(w.data_ptr(), ()))
+                     _align(w.data_ptr(), ()), shared_w)
     if design == "im2col" and plan.design != "im2col":
         plan = ConvPlan("im2col", "forced", bm=_IM2COL_BM,
                         nt=_im2col_nt(cout))
     elif design not in (None, plan.design):
         raise ValueError(f"design {design!r} cannot run this shape: "
                          f"{plan.reason}")
-    if -(-b * ho * wo // plan.bm) > 65535:
-        raise ValueError(f"{b * ho * wo} output pixels per sample exceed the "
-                         f"kernel's grid ({65535 * plan.bm})")
+    launch_grid(plan, b * ho * wo, samples, cout, sms)
     # 4-byte loads and stores where every run starts on a 4-byte boundary
     vec_x = (cin % 4 == 0 and all(v % 4 == 0 for v in x_strides)
              and x.data_ptr() % 4 == 0)
@@ -590,7 +635,8 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
     args = _Args(
         x=x.data_ptr(), x_sb=x_strides[0], x_sh=x_strides[1],
         x_sw=x_strides[2], x_ss=x_strides[3], B=b, H=h, W=wd, cin=cin,
-        w=w.data_ptr(), S=s, kh=kh, kw=kw, cout=cout, stride=stride, pad=pad,
+        w=w.data_ptr(), w_ss=0 if shared_w else k * cout, S=samples, kh=kh,
+        kw=kw, cout=cout, stride=stride, pad=pad,
         Ho=ho, Wo=wo, out=_ptr(out), o_sb=out_strides[0],
         o_sh=out_strides[1], o_sw=out_strides[2], o_ss=out_strides[3],
         res=_ptr(residual), bias=_ptr(bias),
@@ -607,8 +653,8 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
         pixel=int(plan.design == "pixel"))
     if plan.design == "pixel":
         args.sg, args.s_cta = sample_groups(
-            plan, s, -(-b * ho * wo // plan.bm) * (cout // plan.bn),
-            _sm_count(x.device))
+            plan, samples, -(-b * ho * wo // plan.bm) * (cout // plan.bn),
+            sms)
         # the residual is read a byte at a time: only the output's
         # address and strides set the width of the stores
         args.vo = _align(out.data_ptr() if out is not None else 0,
@@ -617,6 +663,15 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
         table = _tables(plan, x.device)
         args.koff = table.data_ptr()
         args.pixoff = table.data_ptr() + 4 * len(plan.koff)
+    return args, plan
+
+
+def _launch(x, *shape_args, **kwargs):
+    """One launch of the kernel (`conv_args`'s arguments) on the current
+    stream; raises if the launch fails."""
+    global launches
+    args, plan = conv_args(x, *shape_args, sms=_sm_count(x.device),
+                           **kwargs)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -625,26 +680,43 @@ def _launch(x, x_strides, x_shape, w, stride, pad, out_shape, out,
         raise RuntimeError(f"qbn_int_conv launch failed: cudaError {err}")
     launches += 1
     launches_by_design[plan.design] += 1
+    if args.w_ss == 0:
+        launches_shared_w[plan.design] += 1
 
 
 def _merged_geometry(x_codes, w_codes, strides, padding, shared_x):
     """Checks the merged-layout operands of a CUDA call; returns
-    (stride, pad, (B, H, W, cin), x element strides, (Ho, Wo))."""
+    (stride, pad, S, (B, H, W, cin), x element strides, (Ho, Wo))."""
     dev = x_codes.device
-    if w_codes.ndim != 5:
-        raise ValueError("w_codes must be (S, kh, kw, cin, cout)")
-    s, kh, kw, cin, cout = w_codes.shape
+    if w_codes.ndim not in (4, 5):
+        raise ValueError("w_codes must be (S, kh, kw, cin, cout), or "
+                         "(kh, kw, cin, cout) shared by every sample")
+    kh, kw, cin, cout = w_codes.shape[-4:]
     _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
     if x_codes.ndim != 4:
         raise ValueError("x_codes must be (B, H, W, C)")
-    b, h, wd = x_codes.shape[:3]
+    b, h, wd, c = x_codes.shape
+    if w_codes.ndim == 5:
+        s = w_codes.shape[0]
+    elif shared_x:
+        raise ValueError("a shared input needs per-sample weights")
+    else:
+        s = c // cin
     _check(x_codes, torch.int8, "x_codes",
            (b, h, wd, cin if shared_x else s * cin), dev)
     stride, pad = _strides(strides), _padding(padding)
     ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
-    c = x_codes.shape[3]
     x_strides = (h * wd * c, wd * c, c, 0 if shared_x else cin)
-    return stride, pad, (b, h, wd, cin), x_strides, (ho, wo)
+    return stride, pad, s, (b, h, wd, cin), x_strides, (ho, wo)
+
+
+def _per_sample(w_codes, x_codes, shared_x):
+    """Weights (kh, kw, cin, cout) shared by every sample of a merged input,
+    broadcast to (S, kh, kw, cin, cout) for the plain versions."""
+    if w_codes.ndim == 5 or shared_x:
+        return w_codes
+    return w_codes.expand(x_codes.shape[3] // w_codes.shape[2],
+                          *w_codes.shape)
 
 
 def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
@@ -657,7 +729,9 @@ def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
 
     x_codes: (B, H, W, S*cin) int8 codes, sample-major channel groups, or
       (B, H, W, cin) when shared_x (the stem: one image, S weights).
-    w_codes: (S, kh, kw, cin, cout) int8 per-sample weight codes.
+    w_codes: (S, kh, kw, cin, cout) int8 per-sample weight codes, or
+      (kh, kw, cin, cout) shared by every sample (a deterministic conv in
+      the merged layout; not with shared_x).
     strides: (sh, sw); padding: ((p, p), (p, p)).
     residual (optional): (B, H', W', S*cout) int8 codes at scale
       res_scale; the quantised add (dequant both, add, requant to
@@ -672,23 +746,85 @@ def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
                    if residual is not None else ()))
     if dev.type == "cpu":
         return int_conv_merged_plain(
-            x_codes, q["x_scale"], w_codes, q["w_scale"], q["w_zp"], bias,
-            q["out_scale"], q["out_zp"], strides, padding, a_lo, a_hi, relu,
-            shared_x, residual, q.get("res_scale"), q.get("res_out_scale"),
-            q.get("res_out_zp"), res_relu)
+            x_codes, q["x_scale"], _per_sample(w_codes, x_codes, shared_x),
+            q["w_scale"], q["w_zp"], bias, q["out_scale"], q["out_zp"],
+            strides, padding, a_lo, a_hi, relu, shared_x, residual,
+            q.get("res_scale"), q.get("res_out_scale"), q.get("res_out_zp"),
+            res_relu)
 
-    stride, pad, x_shape, x_strides, (ho, wo) = _merged_geometry(
+    stride, pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
         x_codes, w_codes, strides, padding, shared_x)
-    s, cout = w_codes.shape[0], w_codes.shape[4]
+    cout = w_codes.shape[-1]
     b = x_shape[0]
     if bias is not None:
         _check(bias, torch.float32, "bias", (cout,), dev)
     if residual is not None:
         _check(residual, torch.int8, "residual", (b, ho, wo, s * cout), dev)
     out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, x_strides, x_shape, w_codes, stride, pad, (ho, wo), out,
-            (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
+    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
+            out, (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
             residual, relu, res_relu, a_lo, a_hi, design=_design)
+    return out
+
+
+def int_conv_plain(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
+                   out_scale, out_zp, strides, padding, a_lo: int, a_hi: int,
+                   relu: bool = False):
+    """`int_conv` in plain PyTorch: the samples folded into the batch and
+    one group of weights (qbn_tpu's rule for per-sample x and shared w),
+    through int_conv_merged_plain's float64 library convs and epilogue."""
+    lead = x_codes.shape[:-3]
+    out = int_conv_merged_plain(
+        x_codes.reshape(-1, *x_codes.shape[-3:]), x_scale, w_codes[None],
+        w_scale, w_zp, bias, out_scale, out_zp, strides, padding, a_lo, a_hi,
+        relu)
+    return out.reshape(*lead, *out.shape[1:])
+
+
+def int_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+             out_zp, strides, padding, a_lo: int, a_hi: int,
+             relu: bool = False, _design=None):
+    """Quantised conv with ONE set of weights for every sample (port of
+    qbn_tpu/ops/integer.py int_conv, with _conv_core's rules for a shared
+    input and for per-sample activations with shared weights): MC-Dropout,
+    pointwise and each member of an ensemble.
+
+    x_codes: (S, B, H, W, cin) int8 codes of S samples (masked
+      activations), or (B, H, W, cin) of one (computed once, as qbn_tpu's
+      vmap computes an unbatched conv).
+    w_codes: (kh, kw, cin, cout) int8 weight codes.
+    Returns (S, B, H', W', cout) or (B, H', W', cout) int8 codes.
+
+    On the card the samples ride the kernel's sample axis (stride
+    B*H*W*cin) and the weights have a sample stride of 0, so that S
+    samples of B images never fold into S*B images, which would pass the
+    grid's 65535 pixel tiles at B=256, S=100 (`launch_grid`). Input
+    without a sample axis is one sample (S=1), so that it takes the
+    per-sample plans (the halo body for the 3x3 convs)."""
+    dev = x_codes.device
+    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
+    if x_codes.ndim not in (4, 5) or w_codes.ndim != 4:
+        raise ValueError("x_codes must be (S, B, H, W, cin) or (B, H, W, "
+                         "cin), w_codes (kh, kw, cin, cout)")
+    if dev.type == "cpu":
+        return int_conv_plain(x_codes, q["x_scale"], w_codes, q["w_scale"],
+                              q["w_zp"], bias, q["out_scale"], q["out_zp"],
+                              strides, padding, a_lo, a_hi, relu)
+    kh, kw, cin, cout = w_codes.shape
+    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
+    lead = tuple(x_codes.shape[:-3])
+    b, h, wd = x_codes.shape[-4:-1]
+    _check(x_codes, torch.int8, "x_codes", (*lead, h, wd, cin), dev)
+    if bias is not None:
+        _check(bias, torch.float32, "bias", (cout,), dev)
+    stride, pad = _strides(strides), _padding(padding)
+    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
+    s = lead[0] if x_codes.ndim == 5 else 1
+    out = torch.empty((*lead, ho, wo, cout), dtype=torch.int8, device=dev)
+    _launch(x_codes, _sample_strides(b, h, wd, cin), (b, h, wd, cin),
+            w_codes, s, stride, pad, (ho, wo), out,
+            (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
+            None, relu, False, a_lo, a_hi, design=_design)
     return out
 
 
@@ -725,7 +861,7 @@ def mc_group_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
     ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
     out = torch.empty((s, b, ho, wo, cout), dtype=torch.int8, device=dev)
     _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
-            (b, h, wd, cin), w_codes, stride, pad, (ho, wo), out,
+            (b, h, wd, cin), w_codes, s, stride, pad, (ho, wo), out,
             (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
             None, relu, False, a_lo, a_hi, design=_design)
     return out
@@ -738,24 +874,41 @@ def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False,
     the conv of the codes with the weight codes (no zero point), winsum the
     window sum of each sample's activations."""
     if x_codes.device.type == "cpu":
-        return int_conv_sums_plain(x_codes, w_codes, strides, padding,
-                                   shared_x)
-    stride, pad, x_shape, x_strides, (ho, wo) = _merged_geometry(
+        return int_conv_sums_plain(
+            x_codes, _per_sample(w_codes, x_codes, shared_x), strides,
+            padding, shared_x)
+    stride, pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
         x_codes, w_codes, strides, padding, shared_x)
-    b, s, cout = x_shape[0], w_codes.shape[0], w_codes.shape[4]
+    b, cout = x_shape[0], w_codes.shape[-1]
     dev = x_codes.device
     acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
     win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
-    _launch(x_codes, x_strides, x_shape, w_codes, stride, pad, (ho, wo), None,
-            (0, 0, 0, 0), raw=(acc, win), design=_design)
+    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
+            None, (0, 0, 0, 0), raw=(acc, win), design=_design)
     return acc, win
 
 
 def merged_plan(x_codes, w_codes, strides, padding, shared_x: bool = False):
     """The ConvPlan that `int_conv_merged` runs these operands with."""
-    _stride, pad, (_b, h, wd, cin), x_strides, _hw = _merged_geometry(
+    stride, pad, _s, (_b, h, wd, cin), x_strides, _hw = _merged_geometry(
         x_codes, w_codes, strides, padding, shared_x)
-    _s, kh, kw, _cin, cout = w_codes.shape
-    return plan_conv(h, wd, cin, cout, kh, kw, _strides(strides), pad,
-                     shared_x, _align(x_codes.data_ptr(), x_strides),
-                     _align(w_codes.data_ptr(), ()))
+    kh, kw, _cin, cout = w_codes.shape[-4:]
+    return plan_conv(h, wd, cin, cout, kh, kw, stride, pad, shared_x,
+                     _align(x_codes.data_ptr(), x_strides),
+                     _align(w_codes.data_ptr(), ()), w_codes.ndim == 4)
+
+
+def _sample_strides(b, h, w, cin):
+    """Element strides of (b, h, w, sample) of (S, B, H, W, cin) codes."""
+    return (h * w * cin, w * cin, cin, b * h * w * cin)
+
+
+def conv_plan(x_codes, w_codes, strides, padding):
+    """The ConvPlan that `int_conv` runs these operands with."""
+    kh, kw, cin, cout = w_codes.shape
+    b, h, wd = x_codes.shape[-4:-1]
+    return plan_conv(h, wd, cin, cout, kh, kw, _strides(strides),
+                     _padding(padding), False,
+                     _align(x_codes.data_ptr(),
+                            _sample_strides(b, h, wd, cin)),
+                     _align(w_codes.data_ptr(), ()), True)

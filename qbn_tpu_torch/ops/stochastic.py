@@ -8,12 +8,14 @@ a noise source: a callable `noise(shape, device)` returning standard
 normals, drawn at the same points and in the same shapes as qbn_tpu draws
 them. `GeneratorNoise` wraps a torch.Generator (the main path);
 `QueueNoise` hands out given arrays in call order (tests feed it the
-normals that a qbn_tpu run receives).
+normals that a qbn_tpu run receives). MC-Dropout's masks come from a
+mask source in the same way: `BernoulliMasks` (a torch.Generator) or
+`QueueMasks` (given masks, in call order).
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -53,6 +55,43 @@ class QueueNoise:
             raise ValueError(f"queued noise has shape {tuple(eps.shape)}, "
                              f"the draw asks for {tuple(shape)}")
         return eps.to(device)
+
+
+class BernoulliMasks:
+    """MC-Dropout keep masks from a torch.Generator, drawn on the
+    generator's device (then moved to the caller's; None: torch's default
+    generator of the caller's device): `masks(shape, keep, device)` gives
+    (samples, *shape) float32 ones with probability keep, else zeros, as
+    jax.random.bernoulli draws uniform < keep."""
+
+    def __init__(self, generator: Optional[torch.Generator], samples: int):
+        self.generator, self.samples = generator, samples
+
+    def __call__(self, shape, keep: float, device) -> torch.Tensor:
+        g = self.generator
+        u = torch.rand((self.samples, *shape), generator=g,
+                       device=device if g is None else g.device)
+        return (u < keep).to(torch.float32).to(device)
+
+
+class QueueMasks:
+    """The given masks (numpy or torch, (S, *shape) each), one per dropout
+    site, in call order; raises on a shape that does not match or when the
+    queue runs dry (tests feed it the masks of a qbn_tpu run)."""
+
+    def __init__(self, arrays: Iterable):
+        self.queue = list(arrays)
+
+    def __call__(self, shape, keep: float, device) -> torch.Tensor:
+        if not self.queue:
+            raise RuntimeError(f"mask queue is empty (asked for {shape})")
+        mask = self.queue.pop(0)
+        if not isinstance(mask, torch.Tensor):
+            mask = torch.from_numpy(np.array(mask))
+        if tuple(mask.shape[1:]) != tuple(shape):
+            raise ValueError(f"queued mask has shape {tuple(mask.shape)}, "
+                             f"the site asks for (S, *{tuple(shape)})")
+        return mask.to(device=device, dtype=torch.float32)
 
 
 def softplus(x):

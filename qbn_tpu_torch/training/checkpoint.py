@@ -17,6 +17,7 @@ again, as `flax.serialization.msgpack_restore` does.
 from __future__ import annotations
 
 import os
+import re
 import struct
 
 import numpy as np
@@ -259,3 +260,18 @@ def load_variables(variables, path: str):
 
 def checkpoint_path(save_dir: str, special_info: str = "") -> str:
     return os.path.join(save_dir, f"weights{special_info}.msgpack")
+
+
+def _natural_key(text: str):
+    return [int(c) if c.isdigit() else c
+            for c in re.split(r"(-?\d+)", text)]
+
+
+def list_snapshots(save_dir: str, special_info: str = ""):
+    """Epoch-stamped SGHMC snapshots 'weights_<info><epoch>.msgpack' in
+    natural order, as qbn_tpu lists them."""
+    pat = re.compile(r"weights_" + re.escape(special_info)
+                     + r"[0-9]+\.msgpack$")
+    names = [f for f in os.listdir(save_dir) if pat.fullmatch(f)]
+    names.sort(key=_natural_key)
+    return [os.path.join(save_dir, n) for n in names]

@@ -1,14 +1,17 @@
-"""Streaming classification metrics over explicit state (port of the
-classification half of qbn_tpu/training/metrics.py).
+"""Streaming metrics over explicit state (port of
+qbn_tpu/training/metrics.py).
 
-Error, NLL (-sum one_hot*log(p+1e-8) / N), Brier (sum (p-one_hot)^2 / N),
+Classification: error, NLL (-sum one_hot*log(p+1e-8) / N), Brier (sum (p-one_hot)^2 / N),
 predictive entropy (-sum p*log(p+1e-8) / N), and the 10-bin l1 expected
 calibration error binned on max-probability confidence (torchmetrics
-CalibrationError(n_bins=10, norm='l1') semantics). Each is a (sum, count)
-accumulator updated per batch.
+CalibrationError(n_bins=10, norm='l1') semantics). Regression: the
+Gaussian NLL of the predictive (mean, var), squared and absolute error.
+Each is a (sum, count) accumulator updated per batch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,4 +79,36 @@ def cls_metrics_compute(state):
         "brier": state["brier_sum"] / count,
         "entropy": state["entropy_sum"] / count,
         "ece": ece,
+    }
+
+
+def reg_metrics_init(device="cpu"):
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"nll_sum": z, "se_sum": z, "ae_sum": z, "count": z}
+
+
+def reg_metrics_update(state, mean, var, target):
+    """Accumulate one batch of predictive (mean, var) and targets."""
+    mean = mean.reshape(-1).to(torch.float32)
+    var = var.reshape(-1).to(torch.float32)
+    target = target.reshape(-1).to(torch.float32).to(mean.device)
+    err = target - mean
+    nll = torch.sum(0.5 * torch.log(2.0 * math.pi * var + 1e-8)
+                    + err ** 2 / (2.0 * var + 1e-8))
+    return {
+        "nll_sum": state["nll_sum"] + nll,
+        "se_sum": state["se_sum"] + torch.sum(err ** 2),
+        "ae_sum": state["ae_sum"] + torch.sum(torch.abs(err)),
+        "count": state["count"] + float(target.shape[0]),
+    }
+
+
+def reg_metrics_compute(state):
+    count = torch.clamp(state["count"], min=1.0)
+    mse = state["se_sum"] / count
+    return {
+        "nll": state["nll_sum"] / count,
+        "mse": mse,
+        "rmse": torch.sqrt(mse),
+        "mae": state["ae_sum"] / count,
     }
