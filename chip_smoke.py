@@ -8,9 +8,11 @@ and drives the port's paths at full width: INT8 Monte-Carlo evaluation
 of the trained Bayes-by-backprop ResNet-18
 (examples/campaign/bbb-cifar-a_7_w_8-seed1) on CIFAR-shaped inputs, INT8
 MC evaluation of the ResNet-18 for MC-Dropout, pointwise and an SGHMC
-ensemble, and float Bayes-by-backprop training of the MNIST LeNet on
-MNIST-shaped inputs, all made from --seed with numpy. Phases, in order,
-each printing its seconds:
+ensemble, float Bayes-by-backprop training of the MNIST LeNet on
+MNIST-shaped inputs, float training of the ResNet-18 for pointwise,
+MC-Dropout and Bayes-by-backprop, and QAT with convert to the INT states
+that the evaluation reads, on CIFAR-shaped inputs, all made from --seed
+with numpy. Phases, in order, each printing its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
   2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
@@ -69,13 +71,30 @@ each printing its seconds:
               with the same params and noise, the card against the CPU at
               B=8, and ms per steady step
   11. train_profile one training step under torch.profiler
-  12. times   each kernel against its plain version and its bound, in
+  12. resnet_train `flows.fit` of the CIFAR ResNet-18 (pointwise,
+              MC-Dropout, BBB with tpu_fused=True) at B=256, full width,
+              10 steps each: the dense kernel's launches (1 per BBB step,
+              the head, B=256 K=192 N=10), ms per steady step, the BBB
+              kernel path against the plain path for 3 steps with the same
+              params and noise, each method's card against the CPU at B=8
+  13. qat     the committed flagship's params, batch_stats and quant
+              converted on the card, against the CPU's convert and against
+              the committed qconst (mismatches per leaf); `flows.qat` of
+              the BBB flagship (the cifar QAT preset, tpu_fused, B=256, 10
+              steps: the dense kernel once a step), its converted state
+              through `load_trained` and `evaluate` at S=100 (the draw
+              once and the conv 20 times a batch); `flows.qat` of
+              pointwise and MC-Dropout from their committed float
+              checkpoints, 3 steps each, and one INT batch each
+  14. times   each kernel against its plain version and its bound, in
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
               against the float64 cuDNN conv alone and, at every shape
               that takes the halo or the pixel body, the im2col body; the
               draw kernel against its bound restated with the Philox
-              integer work; the conv kernel with shared weights per
+              integer work, and in its explicit-noise mode; the dense
+              kernel also at the ResNet head; the conv kernel with shared
+              weights per
               shape of an MC-Dropout forward, bitwise against its plain
               version on random codes, and against its bound with the
               weights counted once)
@@ -119,7 +138,8 @@ from qbn_tpu_torch.ops import bbb_dense as bd
 from qbn_tpu_torch.ops import int_conv as ic
 from qbn_tpu_torch.ops import sample_weights as sw
 from qbn_tpu_torch.ops.stochastic import (
-    BernoulliMasks, QueueNoise, local_reparam_dense_auto, softplus)
+    BernoulliMasks, QueueMasks, QueueNoise, local_reparam_dense_auto,
+    softplus)
 from qbn_tpu_torch.presets import preset
 from qbn_tpu_torch.training.metrics import (
     cls_metrics_compute, cls_metrics_init)
@@ -139,9 +159,10 @@ CONV_SOURCE = "qbn_tpu_torch/csrc/int_conv.cu"
 CONV_REPLACES = "qbn_tpu/ops/pallas/conv_gemm.py:123"
 # the training path: the mnist BBB preset at its batch, 2 epochs x 10 steps
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 256, 2, 10
-# (B, K, N) of LeNet's fc_0 and fc_1 at that batch, and a ragged shape
+# (B, K, N) of LeNet's fc_0 and fc_1 at that batch, of the ResNet-18's
+# head (fc) at the cifar batch, and a ragged shape
 DENSE_SHAPES = [("fc_0", 256, 2450, 500), ("fc_1", 256, 500, 10),
-                ("ragged", 250, 333, 77)]
+                ("head", 256, 192, 10), ("ragged", 250, 333, 77)]
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # (non-tensor-core) operations/s and int8 tensor-core operations/s, at the
@@ -1155,6 +1176,30 @@ def phase_times(state, plan, samples, seed):
           f"by {bound_by} (bytes {bytes_ms:.4f} ms; int32 Philox "
           f"{int_ms:.4f} ms, fp32 chain {fp_ms:.4f} ms), kernel at "
           f"{bound_ms / ms:.1%} of its bound")
+
+    # the explicit-noise mode (qbn_tpu's _kernel_noise and
+    # _kernel_rows_noise): the same chain on given normals, which it reads
+    noise = [torch.randn((samples,) + tuple(w.shape), generator=torch.
+                         Generator(device=dev).manual_seed(seed + 10 + i),
+                         device=dev) for i, (w, *_r) in enumerate(layers)]
+
+    def plain_noise():
+        plain_draw(layers, noise)
+
+    def kernel_noise():
+        sw.draw_layers(pack, noise=noise)
+
+    nbytes_ms = 1e3 * (5 * codes + in_bytes) / HBM_BYTES_PER_S
+    nbound = max(nbytes_ms, fp_ms)
+    nby = "bytes" if nbytes_ms >= fp_ms else "operations"
+    t = [cuda_ms(plain_noise, iters=5, warmup=1), cuda_ms(kernel_noise),
+         cuda_ms(kernel_noise), cuda_ms(plain_noise, iters=5, warmup=1)]
+    print(f"draw S={samples}, explicit noise: kernel {t[1]:.4f}/{t[2]:.4f} "
+          f"ms, plain {t[0]:.3f}/{t[3]:.3f} ms, bound {nbound:.4f} ms by "
+          f"{nby} (the normals read: {4 * codes} bytes; fp32 chain "
+          f"{fp_ms:.4f} ms), kernel at {nbound / ((t[1] + t[2]) / 2):.1%} of "
+          "its bound")
+    del noise
     return ms, plain_ms, bound_ms, bound_by
 
 
@@ -1408,13 +1453,14 @@ def _param_diffs(a, b):
             for m in a.params for k in a.params[m]}
 
 
-def _check_params(diffs, what, steps, lr):
+def _check_params(diffs, what, steps, lr, max_share=1e-4):
     """Params of two runs whose gradients differ by rounding. Adam's first
     update is lr * g / (|g| + eps): where a gradient is at the level of
     rounding noise (a handful of the 2.5 M at B=256), its sign, and so an
     update of about lr, can differ, and the next steps spread that into
     differences of 1e-6 to 1e-5 elsewhere. So: every entry within
-    3 * steps * lr, and at most 0.01% of them beyond lr / 10."""
+    3 * steps * lr, and at most max_share of them beyond lr / 10 (not
+    checked when None). Returns the share beyond lr / 10."""
     d = torch.cat(list(diffs.values()))
     n_tenth = int((d > 0.1 * lr).sum())
     print(f"{what}: params max abs diff {float(d.max()):.3g}, {n_tenth} of "
@@ -1422,8 +1468,10 @@ def _check_params(diffs, what, steps, lr):
           " by leaf (max/beyond lr/10) " + ", ".join(
               f"{k} {float(v.max()):.2g}/{int((v > 0.1 * lr).sum())}"
               for k, v in diffs.items()))
-    check(float(d.max()) <= 3 * steps * lr and n_tenth <= 1e-4 * d.numel(),
-          f"{what}: params differ")
+    check(float(d.max()) <= 3 * steps * lr and (
+        max_share is None or n_tenth <= max_share * d.numel()),
+        f"{what}: params differ")
+    return n_tenth / d.numel()
 
 
 def phase_train(seed, dev):
@@ -1579,14 +1627,15 @@ def report_profile(prof, wall_us, what):
               f"{e.key[:60]}")
 
 
-def phase_dense_times(seed):
-    """The dense kernel at fc_0 against its plain version and against two
-    cuBLAS products + a fused epilogue (the library yardstick), in turns;
-    and its bound. Returns (ms, plain_ms, library_ms, bound_ms,
-    bound_by)."""
+def phase_dense_times(seed, shape=DENSE_SHAPES[0], seed_mode=True):
+    """The dense kernel at a shape of DENSE_SHAPES (LeNet's fc_0 by
+    default) against its plain version and against two cuBLAS products +
+    a fused epilogue (the library yardstick), in turns; and its bound;
+    with seed_mode, the same for the kernel's own normals. Returns (ms,
+    plain_ms, library_ms, bound_ms, bound_by)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 31)
-    _name, b, k, n = DENSE_SHAPES[0]
+    name, b, k, n = shape
     x, w, sp, eps = _dense_inputs(b, k, n, g, dev)
     x2, s2 = x * x, sp * sp
 
@@ -1615,7 +1664,7 @@ def phase_dense_times(seed):
                                             kernel, plain)]
     plain_ms, ms, lib_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, \
         (t[2] + t[3]) / 2
-    print(f"bbb_dense fc_0 B={b} K={k} N={n}: kernel {t[1]:.4f}/{t[4]:.4f} "
+    print(f"bbb_dense {name} B={b} K={k} N={n}: kernel {t[1]:.4f}/{t[4]:.4f} "
           f"ms, plain {t[0]:.4f}/{t[5]:.4f} ms, two cuBLAS float32 products "
           f"+ epilogue (TF32 off) {t[2]:.4f}/{t[3]:.4f} ms, bound "
           f"{bound_ms:.4f} ms by {bound_by} ({tf32_ops} TF32 operations "
@@ -1623,6 +1672,8 @@ def phase_dense_times(seed):
           f"{bytes_ms:.4f} ms; the products on the float32 CUDA cores "
           f"would be bound at {cuda_core_ms:.4f} ms)")
 
+    if not seed_mode:
+        return ms, plain_ms, lib_ms, bound_ms, bound_by
     # seed mode (qbn_tpu's _kernel_prng): the normals drawn in the kernel
     # against torch.randn + the plain version; eps is no longer read
     gen = torch.Generator().manual_seed(seed + 32)
@@ -1638,11 +1689,473 @@ def phase_dense_times(seed):
         ts = [cuda_ms(f, iters=50) for f in (plain_seed, kernel_seed,
                                               kernel_seed, plain_seed)]
     seed_bytes_ms = 1e3 * (nbytes - 4 * b * n) / HBM_BYTES_PER_S
-    print(f"bbb_dense fc_0 seed mode: kernel {ts[1]:.4f}/{ts[2]:.4f} ms, "
+    print(f"bbb_dense {name} seed mode: kernel {ts[1]:.4f}/{ts[2]:.4f} ms, "
           f"randn + plain {ts[0]:.4f}/{ts[3]:.4f} ms, bound "
           f"{max(ops_ms, seed_bytes_ms):.4f} ms by operations (the Philox "
           "and Box-Muller work not counted)")
     return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
+# The ResNet training and QAT paths: the cifar presets at B=256, full
+# width, RESNET_STEPS steps each; the campaign's float checkpoints of the
+# methods that have one
+RESNET_STEPS, RESNET_BATCH, RESNET_SMALL = 10, 256, 8
+RESNET_METHODS = ("pointwise", "mcdropout", "bbb")
+FLOAT_CKPTS = {m: os.path.join(ROOT, "examples", "campaign",
+                               f"{m}-cifar-seed1")
+               for m in ("pointwise", "mcdropout")}
+QAT_SHORT_STEPS = 3           # pointwise and MC-Dropout QAT from float
+
+
+class RecordingNoise:
+    """A generator's normals on the card that keeps what it drew, so that
+    another run can be given the same noise (QueueNoise)."""
+
+    def __init__(self, generator):
+        self.generator, self.drawn = generator, []
+
+    def __call__(self, shape, device):
+        eps = torch.randn(tuple(shape), generator=self.generator,
+                          device=self.generator.device).to(device)
+        self.drawn.append(eps)
+        return eps
+
+
+def _cifar_batches(rng, n, batch, dev):
+    return [(torch.as_tensor(rng.random((batch, 32, 32, 3),
+                                        dtype=np.float32), device=dev),
+             torch.as_tensor(rng.integers(0, 10, batch), device=dev))
+            for _ in range(n)]
+
+
+def _steady_step_ms(trainer, state, batches):
+    """ms per steady training step: CUDA events over the batches."""
+    metric = cls_metrics_init(device=trainer.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, y in batches:
+        state, metric, logs = trainer.train_step(state, metric, x, y,
+                                                 trainer.noise,
+                                                 trainer.masks)
+    end.record()
+    torch.cuda.synchronize()
+    check(math.isfinite(float(logs["obj"])), "non-finite loss")
+    return start.elapsed_time(end) / len(batches), state
+
+
+def _steps(cfg, mode, variables, batches, noise, masks, dev):
+    """Steps of a fresh trainer from `variables` with the given noise and
+    mask sources; returns (losses, final state)."""
+    tx, _ = build_optimizer(cfg, len(batches))
+    trainer = Trainer(build_model(cfg), cfg, tx, mode, len(batches),
+                      len(batches) * len(batches[0][1]), noise, dev,
+                      masks=masks)
+    state = trainer.init_state(variables)
+    metric = cls_metrics_init(device=dev)
+    losses = []
+    for x, y in batches:
+        state, metric, logs = trainer.train_step(state, metric, x.to(dev),
+                                                 y.to(dev), noise, masks)
+        losses.append((float(logs["obj"]), float(logs["main_obj"])))
+    return losses, state
+
+
+def _module_param_diffs(a, b):
+    """{top-level module: |a - b| of all its params, flattened on the
+    CPU} over nested params."""
+    def flat(x, y):
+        if isinstance(x, dict):
+            return torch.cat([flat(x[k], y[k]) for k in x])
+        return (x.detach().cpu() - y.detach().cpu()).abs().reshape(-1)
+
+    return {m: flat(a.params[m], b.params[m]) for m in a.params}
+
+
+def _profile_step(trainer, state, batch, what):
+    """One training step under torch.profiler: device time by kernel and
+    the idle share of the step's wall time."""
+    x, y = batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, cls_metrics_init(device=trainer.device), x,
+                           y, trainer.noise, trainer.masks)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    report_profile(prof, wall_us, what)
+
+
+# the chained kernel-vs-plain run of the BBB ResNet: its NLL after 3
+# steps drifts by rounding that Adam's lr * sign(g) updates and batch norm
+# spread (on an H100 80GB HBM3 at 700 W: NLL 2.8e-05 relative at step 3,
+# the total loss 4.5e-07, 3.4% of the params beyond lr / 10 in each of
+# three runs, where the plain path against itself with cuDNN's atomic
+# weight gradients read 2.8%, 2.1% and 1.8%), so the NLL is held to
+# CHAIN_NLL_RTOL and the share of params beyond lr / 10 to
+# CHAIN_SHARE_RATIO times the plain path's own (plus the 1e-4 that holds
+# a single step); each step from a common state is held as the LeNet
+# phase's steps are
+CHAIN_NLL_RTOL, CHAIN_SHARE_RATIO = 1e-4, 4
+
+
+def _kernel_vs_plain_steps(cfg, variables, batches, seed, dev):
+    """The BBB ResNet's kernel path (the head through the dense kernel)
+    against its plain path, with the same noise. (1) Step by step, cuDNN
+    held to deterministic algorithms: each step of the plain path starts
+    from the kernel path's state before it (the same params, optimiser
+    state and running statistics); losses within 1e-5. (2) Chained, cuDNN
+    deterministic: each path runs its own steps from the same init; the
+    loss within 1e-5, the NLL within CHAIN_NLL_RTOL. (3) The yardstick of
+    (2): the plain path chained against itself with cuDNN's default
+    weight-gradient convs, which add with atomics; (2)'s share of params
+    beyond lr / 10 within CHAIN_SHARE_RATIO times (3)'s, plus 1e-4."""
+    trainers = {}
+    for fused in (True, False):
+        c = cfg.replace(tpu_fused=fused)
+        tx, _ = build_optimizer(c, len(batches))
+        trainers[fused] = Trainer(build_model(c), c, tx, "float",
+                                  len(batches),
+                                  len(batches) * len(batches[0][1]), None,
+                                  dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 72)
+    lr, n = cfg.learning_rate, len(batches)
+
+    def chained(a, b, what):
+        sa = trainers[a].init_state(variables)
+        sb = trainers[b].init_state(variables)
+        worst = {"obj": 0.0, "main_obj": 0.0}
+        for x, y in batches:
+            rec = RecordingNoise(g)
+            sa, _m, la = trainers[a].train_step(
+                sa, cls_metrics_init(device=dev), x, y, rec)
+            sb, _m, lb = trainers[b].train_step(
+                sb, cls_metrics_init(device=dev), x, y,
+                QueueNoise(list(rec.drawn)))
+            for k in worst:
+                worst[k] = max(worst[k], abs(float(la[k]) - float(lb[k]))
+                               / abs(float(lb[k])))
+        print(f"resnet bbb {what}, {n} chained steps: loss max rel diff "
+              f"{worst['obj']:.3g}, NLL max rel diff {worst['main_obj']:.3g}")
+        share = _check_params(_module_param_diffs(sa, sb),
+                              f"resnet bbb {what}, {n} chained steps", n, lr,
+                              None)
+        return worst, share
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = trainers[True].init_state(variables)
+        for i, (x, y) in enumerate(batches):
+            rec = RecordingNoise(g)
+            k_state, _m, k_logs = trainers[True].train_step(
+                state, cls_metrics_init(device=dev), x, y, rec)
+            p_state, _m, p_logs = trainers[False].train_step(
+                state, cls_metrics_init(device=dev), x, y,
+                QueueNoise(list(rec.drawn)))
+            d = {k: abs(float(k_logs[k]) - float(p_logs[k]))
+                 / abs(float(p_logs[k])) for k in ("obj", "main_obj")}
+            print(f"resnet bbb step {i}, kernel path vs plain path from the "
+                  f"same state: loss {float(k_logs['obj']):.6f} vs "
+                  f"{float(p_logs['obj']):.6f}, rel diff {d['obj']:.3g}, "
+                  f"NLL rel diff {d['main_obj']:.3g}")
+            check(d["obj"] <= 1e-5 and d["main_obj"] <= 1e-5,
+                  "resnet bbb: kernel and plain losses differ")
+            _check_params(_module_param_diffs(k_state, p_state),
+                          f"resnet bbb step {i} kernel path vs plain path",
+                          1, lr)
+            state = k_state
+        worst, share = chained(True, False, "kernel path vs plain path")
+        check(worst["obj"] <= 1e-5 and worst["main_obj"] <= CHAIN_NLL_RTOL,
+              f"resnet bbb: kernel and plain chained losses differ (limits "
+              f"1e-5, NLL {CHAIN_NLL_RTOL:g})")
+        torch.backends.cudnn.deterministic = False
+        _w, own = chained(False, False,
+                          "plain path vs plain path, cuDNN default")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    print(f"resnet bbb chained: kernel vs plain {share:.3%} of the params "
+          f"beyond lr/10, plain vs plain {own:.3%} (limit "
+          f"{CHAIN_SHARE_RATIO} x {own:.3%} + 0.010%)")
+    check(share <= CHAIN_SHARE_RATIO * own + 1e-4,
+          "resnet bbb: kernel and plain chained params differ")
+
+
+def phase_resnet_train(seed, dev):
+    """flows.fit of the ResNet-18 (pointwise, MC-Dropout, BBB with
+    tpu_fused) at B=256, full width; the dense kernel's launches (1 per BBB
+    step, the head); ms per steady step; for BBB the kernel path against
+    the plain path for 3 steps with the same noise, each step from the
+    same params and the 3 steps chained; each method's card against the
+    CPU at B=8. Returns ({method: dense kernel
+    launches}, {method: ms per steady step})."""
+    rng = np.random.default_rng(seed + 71)
+    batches = _cifar_batches(rng, RESNET_STEPS, RESNET_BATCH, dev)
+    launches, step_ms = {}, {}
+    for method in RESNET_METHODS:
+        cfg = preset(method, "cifar", tpu_fused=True, epochs=1, seed=seed)
+        bd.launches = 0
+        t0 = time.perf_counter()
+        model, trainer, state = fit(cfg, batches, device=dev)
+        n = bd.launches
+        launches[method] = n
+        want = RESNET_STEPS if method == "bbb" else 0
+        check(n == want, f"resnet {method}: dense kernel launches {n} for "
+              f"{RESNET_STEPS} steps, expected {want}")
+        tm = trainer.history[-1]["train"]
+        check(all(math.isfinite(v) for v in tm.values()),
+              f"resnet {method}: non-finite training metrics {tm}")
+        step_ms[method], state = _steady_step_ms(trainer, state, batches)
+        _profile_step(trainer, state, batches[0], f"profiled resnet {method} "
+                      "float step")
+        print(f"resnet {method} fit: {RESNET_STEPS} steps of B="
+              f"{RESNET_BATCH} in {time.perf_counter() - t0:.2f} s (first "
+              f"step included), dense kernel launches {n}; steady "
+              f"{step_ms[method]:.3f} ms per step (CUDA events over "
+              f"{len(batches)} steps), "
+              f"{1e3 * RESNET_BATCH / step_ms[method]:.0f} examples/s; "
+              f"epoch metrics {json.dumps(tm)}", flush=True)
+        variables = init_variables(model, torch.Generator().manual_seed(
+            seed), cfg.input_size, dev)
+
+        if method == "bbb":
+            _kernel_vs_plain_steps(cfg, variables, batches[:3], seed, dev)
+
+        # the card against the CPU (held against qbn_tpu by the CPU
+        # tests): one step and an eval forward at B=8, the same noise and
+        # masks
+        cpu = torch.device("cpu")
+        small = [(batches[0][0][:RESNET_SMALL], batches[0][1][:RESNET_SMALL])]
+        g = torch.Generator(device=dev).manual_seed(seed + 73)
+        rec = RecordingNoise(g)
+        mrec = BernoulliMasks(g, 1) if method == "mcdropout" else None
+        drawn_masks = []
+        if mrec is not None:
+            def masks_card(shape, keep, device, _m=mrec):
+                m = _m(shape, keep, device)
+                drawn_masks.append(m)
+                return m
+        else:
+            masks_card = None
+        lg, sg = _steps(cfg, "float", variables, small, rec, masks_card, dev)
+        lc, sc = _steps(cfg, "float", to_device(variables, cpu),
+                        [(x.cpu(), y.cpu()) for x, y in small],
+                        QueueNoise([e.cpu() for e in rec.drawn]),
+                        QueueMasks([m.cpu() for m in drawn_masks])
+                        if mrec is not None else None, cpu)
+        dl = abs(lg[0][0] - lc[0][0]) / abs(lc[0][0])
+        print(f"resnet {method} card vs CPU at B={RESNET_SMALL}: loss "
+              f"{lg[0][0]:.6f} vs {lc[0][0]:.6f}, rel diff {dl:.3g}")
+        check(dl <= 1e-5, f"resnet {method}: card and CPU losses differ")
+        _check_params(_module_param_diffs(sg, sc),
+                      f"resnet {method} card vs CPU", 1, cfg.learning_rate)
+        del model, trainer, state, variables
+        torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+# a converted flagship against the committed qconst, which qbn_tpu made
+# on a TPU: its float32 division, square root and transcendentals are not
+# XLA:CPU's, and qbn_tpu's own CPU convert of the same state differs from
+# the file in the last ulp of some scales and biases and in some
+# std_codes, by one code (tests/test_torch_convert.py holds the port's
+# CPU convert against qbn_tpu's CPU convert, bitwise but for 25 of the
+# flagship's 1.57 M std_codes). The card's convert against the file, per
+# leaf (H100 80GB HBM3, 700 W): std_codes 23,519 of 1,571,592 one code
+# off, up to 4.30% of a layer; w_scale, std_scale, mul_scale, add_scale
+# and act_scale 1 ulp off in 12, 19, 13, 15 and 1 of 21 layers; bias_f
+# up to 2 ulps of its layer's largest magnitude in 274 of 1,800; w_codes
+# and every zero point equal. The bound: std_codes at most 1 apart on at
+# most 5% of a layer, the other codes and zero points equal, float
+# constants within 2 ulps.
+FILE_CODE_SHARE, FILE_ULPS = 0.05, 2
+
+
+def _qconst_diffs(got, want, loose, code_share, ulps, what):
+    """Mismatch counts per leaf of two qconst trees, checked: integer
+    leaves named in `loose` at most 1 apart on at most code_share of
+    their elements, the others equal; float leaves within `ulps`. Returns
+    the number of mismatched elements."""
+    total = n = 0
+
+    def walk(a, b, path):
+        nonlocal total, n
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], path + (k,))
+            return
+        name = "/".join(path)
+        a, b = a.detach().cpu(), b.detach().cpu()
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{what} {name}: dtype or shape")
+        if a.dtype.is_floating_point:
+            # in ulps of the leaf's largest magnitude: a folded bias is a
+            # difference of terms, its own ulp can be far below theirs
+            off = a != b
+            unit = float(np.spacing(np.float32(b.abs().max())))
+            far = float((a - b).abs().max()) / unit if off.any() else 0
+            check(far <= ulps, f"{what} {name}: {far} ulps apart")
+        else:
+            d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+            off = d > 0
+            far = int(d.max()) if d.numel() else 0
+            share = code_share if path[-1] in loose else 0.0
+            check(far <= 1 and int(off.sum()) <= share * d.numel(),
+                  f"{what} {name}: {int(off.sum())} of {d.numel()} codes "
+                  f"off, up to {far}")
+        k = int(off.sum())
+        total, n = total + k, n + off.numel()
+        row = by_leaf.setdefault(path[-1], [0, 0, 0, 0.0, 0.0])
+        row[0] += k
+        row[1] += off.numel()
+        row[2] += int(k > 0)
+        row[3] = max(row[3], far)
+        row[4] = max(row[4], k / off.numel())
+
+    by_leaf = {}
+    walk(got, want, ())
+    print(f"{what}: {total} of {n} elements differ; by leaf (elements off,"
+          " layers off, largest distance, largest share of a layer): "
+          + ", ".join(f"{k} {r[0]}/{r[1]}, {r[2]}, {r[3]:.3g}, {r[4]:.2%}"
+                      for k, r in by_leaf.items() if r[0]), flush=True)
+    return total
+
+
+def phase_qat(seed, dev):
+    """QAT and convert on the card: (1) the committed flagship's
+    params/batch_stats/quant converted, against the port's CPU convert
+    and against the committed qconst; (2) flows.qat of the BBB flagship
+    (the cifar QAT preset, tpu_fused, B=256, RESNET_STEPS steps), then
+    load_trained and one INT batch at S=100: the dense kernel once per
+    step, the draw once and the conv 20 times a batch; (3) flows.qat of
+    pointwise and MC-Dropout from their committed float checkpoints, then
+    one INT batch each. Returns the counts {'dense', 'draw', 'conv',
+    'conv_by_design', 'conv_shared'} of the launches and
+    {what: ms}."""
+    import tempfile
+    from qbn_tpu_torch.training.checkpoint import read_checkpoint
+    from qbn_tpu_torch.convert import from_jax_state
+    from qbn_tpu_torch.flows import qat as flows_qat
+    from qbn_tpu_torch.utils import convert_model
+    cpu = torch.device("cpu")
+    counts = {"dense": 0, "draw": 0, "conv": 0,
+              "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0},
+              "conv_shared": 0}
+    ms = {}
+    # (1) convert of the committed flagship
+    ckpt = read_checkpoint(os.path.join(EXP, "weights.msgpack"))
+    cfg = Config.from_json(os.path.join(EXP, "config.json"))
+    model = build_model(cfg)
+    fresh = init_variables(model, torch.Generator().manual_seed(seed),
+                           cfg.input_size, cpu, quantized=True)
+    state = from_jax_state({k: v for k, v in ckpt.items() if k != "qconst"})
+    state["qconst"] = fresh["qconst"]
+    x0 = torch.zeros((1, 32, 32, 3))
+    t0 = time.perf_counter()
+    card = convert_model(model, to_device(state, dev), x0.to(dev))
+    torch.cuda.synchronize()
+    print(f"flagship convert on the card: {time.perf_counter() - t0:.3f} s")
+    host = convert_model(model, state, x0)
+    committed = from_jax_state(ckpt)["qconst"]
+    _qconst_diffs(card["qconst"], host["qconst"], {"std_codes"}, 1e-4, 0,
+                  "flagship convert, card vs CPU")
+    _qconst_diffs(card["qconst"], committed, {"std_codes"},
+                  FILE_CODE_SHARE, FILE_ULPS,
+                  "flagship convert, card vs the committed qconst")
+    del card, host, state, fresh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (2) the BBB flagship fine-tuned, converted, loaded, evaluated
+        rng = np.random.default_rng(seed + 81)
+        batches = _cifar_batches(rng, RESNET_STEPS, RESNET_BATCH, dev)
+        qcfg = preset("bbb", "cifar", "qat", tpu_fused=True, epochs=1,
+                      seed=seed)
+        bd.launches = 0
+        t0 = time.perf_counter()
+        qmodel, trainer, conv = flows_qat(qcfg, EXP, batches, device=dev,
+                                          save_dir=os.path.join(tmp, "bbb"))
+        n = bd.launches
+        counts["dense"] += n
+        check(n == RESNET_STEPS, f"qat bbb: dense kernel launches {n} for "
+              f"{RESNET_STEPS} steps")
+        print(f"qat bbb: {RESNET_STEPS} steps of B={RESNET_BATCH} + convert "
+              f"+ save in {time.perf_counter() - t0:.2f} s, dense kernel "
+              f"launches {n}; epoch metrics "
+              f"{json.dumps(trainer.history[-1]['train'])}", flush=True)
+        ms["qat bbb step"], _s = _steady_step_ms(
+            trainer, trainer.init_state(conv), batches)
+        print(f"qat bbb: steady {ms['qat bbb step']:.3f} ms per step")
+        _profile_step(trainer, _s, batches[0], "profiled qat bbb step")
+        del trainer, _s
+        ms.update(_int_batches("bbb", os.path.join(tmp, "bbb"), seed, dev,
+                               counts))
+        # (3) pointwise and MC-Dropout from their float checkpoints
+        for method in ("pointwise", "mcdropout"):
+            qcfg = preset(method, "cifar", "qat", tpu_fused=True, epochs=1,
+                          seed=seed)
+            qb = _cifar_batches(rng, QAT_SHORT_STEPS, qcfg.batch_size, dev)
+            t0 = time.perf_counter()
+            _m, trainer, _c = flows_qat(qcfg, FLOAT_CKPTS[method], qb,
+                                        device=dev,
+                                        save_dir=os.path.join(tmp, method))
+            tm = trainer.history[-1]["train"]
+            check(all(math.isfinite(v) for v in tm.values()),
+                  f"qat {method}: non-finite metrics {tm}")
+            print(f"qat {method} from {os.path.basename(FLOAT_CKPTS[method])}"
+                  f": {QAT_SHORT_STEPS} steps of B={qcfg.batch_size} + "
+                  f"convert + save in {time.perf_counter() - t0:.2f} s; "
+                  f"metrics {json.dumps(tm)}", flush=True)
+            del trainer, _c
+            ms.update(_int_batches(method, os.path.join(tmp, method), seed,
+                                   dev, counts))
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def _int_batches(method, exp_dir, seed, dev, counts):
+    """load_trained of a converted directory and `evaluate` on two B=256
+    batches, the counts set to 0 before and read after: the draw once a
+    BBB batch, the conv 20 times a forward. Adds to `counts`; returns
+    {what: ms of the second batch}."""
+    cfg, model, state = load_trained(exp_dir, device=dev)
+    samples = SAMPLES if method != "pointwise" else 1
+    rng = np.random.default_rng(seed + 82)
+    data = [(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
+             rng.integers(0, 10, BATCH)) for _ in range(2)]
+    _reset_counts()
+    metric_state, probs, seconds = evaluate(
+        model, state, data, samples,
+        torch.Generator(device=dev).manual_seed(seed + 83), dev)
+    draws, convs = sw.launches, ic.launches
+    by, shared = dict(ic.launches_by_design), dict(ic.launches_shared_w)
+    want_draws = 2 if method == "bbb" else 0
+    check(draws == want_draws and convs == 2 * CONVS_PER_BATCH,
+          f"{method} INT after convert: {draws} draws, {convs} conv launches "
+          "in 2 batches")
+    want_by = ({"halo": 2 * HALO_PER_BATCH,
+                "pixel": 2 * (CONVS_PER_BATCH - HALO_PER_BATCH), "im2col": 0}
+               if method == "bbb" else
+               {k: 2 * v for k, v in SHARED_BY_DESIGN.items()})
+    check(by == want_by, f"{method} INT after convert: conv launches by "
+          f"design {by}, expected {want_by}")
+    for p in probs:
+        check(p.shape == (BATCH, 10) and bool(torch.isfinite(p).all()),
+              f"{method} INT after convert: probabilities")
+    counts["draw"] += draws
+    if method == "bbb":
+        counts["conv"] += convs
+        for k in by:
+            counts["conv_by_design"][k] += by[k]
+    else:
+        counts["conv_shared"] += sum(shared.values())
+    metrics = {k: round(float(v), 6) for k, v in cls_metrics_compute(
+        metric_state).items()}
+    print(f"{method} INT after convert: B={BATCH} x {samples} samples, "
+          f"{1e3 * seconds[-1]:.1f} ms for the second batch (first "
+          f"{1e3 * seconds[0]:.1f}), draws {draws}, conv launches {convs} "
+          f"({by}), metrics {json.dumps(metrics)}", flush=True)
+    return {f"int {method} batch": 1e3 * seconds[-1]}
 
 
 def main(argv=None) -> int:
@@ -1702,31 +2215,58 @@ def main(argv=None) -> int:
         dense_launches = phase_train(args.seed, dev)
     with Phase("train_profile"):
         phase_train_profile(args.seed, dev)
+    with Phase("resnet_train"):
+        r_launches, r_ms = phase_resnet_train(args.seed, dev)
+    with Phase("qat"):
+        q_counts, q_ms = phase_qat(args.seed, dev)
     with Phase("times"):
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
         d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
+        head = phase_dense_times(args.seed, DENSE_SHAPES[2],
+                                 seed_mode=False)
         conv_times = phase_conv_times(args.seed)
         shared_times, shared_err = phase_shared_conv_times(args.seed)
-    print("new paths, steady ms per batch: " + ", ".join(
+    print("INT paths, steady ms per batch: " + ", ".join(
         f"{k} {v:.1f}" for k, v in m_ms.items()))
+    print("ResNet training, ms per steady step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r_ms.items()))
+    print("QAT and INT after convert, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in q_ms.items()))
+    resnet_dense = sum(r_launches.values()) + q_counts["dense"]
+    print(f"launches on the paths: draw {launches} (main) + "
+          f"{q_counts['draw']} (INT after QAT); dense {dense_launches} "
+          f"(LeNet) + {sum(r_launches.values())} (ResNet fit) + "
+          f"{q_counts['dense']} (QAT); conv {conv_launches} (main) + "
+          f"{q_counts['conv']} (BBB INT after QAT), shared weights "
+          f"{sum(m_launches.values())} (methods) + {q_counts['conv_shared']}"
+          " (INT after QAT)")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
         "name": "sample_weights", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches + q_counts["draw"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
         "name": "bbb_dense", "route": "cuda", "source": DENSE_SOURCE,
-        "replaces": DENSE_REPLACES, "launches": dense_launches,
+        "replaces": DENSE_REPLACES,
+        "launches": dense_launches + resnet_dense,
         "max_abs_err": dense_err, "ms": d_ms, "plain_ms": d_plain,
-        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}] + [{
+        "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}, {
+        # the same kernel at the ResNet-18's head, on the ResNet paths
+        "name": "bbb_dense/head", "route": "cuda", "source": DENSE_SOURCE,
+        "replaces": DENSE_REPLACES, "launches": resnet_dense,
+        "max_abs_err": dense_err, "ms": head[0], "plain_ms": head[1],
+        "bound_ms": head[3], "bound_by": head[4], "library_ms": head[2]}]
+        + [{
         # the conv kernel per batch, then each body: the halo and pixel
         # bodies on the main path, the im2col body (no launch there) timed
         # on every shape in turns with them
         "name": "int_conv" + ("" if key == "all" else f"/{key}"),
         "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
-        "launches": conv_launches if key == "all" else by_design[key],
+        "launches": (conv_launches + q_counts["conv"] if key == "all" else
+                     by_design[key] + q_counts["conv_by_design"][key]),
         "max_abs_err": (max(conv_errs.values()) if key == "all" else
                         conv_errs[key]),
         "ms": conv_times[key][0], "plain_ms": conv_times[key][1],
@@ -1738,7 +2278,7 @@ def main(argv=None) -> int:
         # paths: their launches; its time per MC-Dropout batch
         "name": "int_conv/shared_w", "route": "cuda",
         "source": CONV_SOURCE, "replaces": CONV_REPLACES,
-        "launches": sum(m_launches.values()),
+        "launches": sum(m_launches.values()) + q_counts["conv_shared"],
         "max_abs_err": max(m_err, shared_err), "ms": shared_times[0],
         "plain_ms": shared_times[1], "bound_ms": shared_times[2],
         "bound_by": shared_times[3], "library_ms": None}]}))

@@ -6,12 +6,15 @@ has an obvious counterpart, and it imports torch, numpy and the standard
 library only: never jax, flax, optax, msgpack or qbn_tpu.
 
 What is ported so far:
-- INT8 Monte-Carlo evaluation of a converted Bayes-by-backprop ResNet-18
-  from a trained checkpoint (`evaluation.mc.evaluate`), through the bulk
-  posterior weight draw kernel, `csrc/sample_weights.cu`;
-- float Bayes-by-backprop training of the MNIST LeNet (`flows.fit`), whose
-  dense layers run the fused local-reparametrisation kernel,
-  `csrc/bbb_dense.cu`, with `tpu_fused=True`.
+- INT8 Monte-Carlo evaluation of converted models of the four methods
+  (`evaluation.mc.evaluate`): the bulk posterior weight draw kernel,
+  `csrc/sample_weights.cu`, and the int8 conv kernel, `csrc/int_conv.cu`;
+- float training of the MNIST LeNet and of the CIFAR ResNet-18 with batch
+  norm (`flows.fit`), whose Bayes-by-backprop dense layers run the fused
+  local-reparametrisation kernel, `csrc/bbb_dense.cu`, with
+  `tpu_fused=True`;
+- QAT and convert to the INT state that the evaluation reads
+  (`flows.qat`).
 The kernels are built with nvcc at first use (`ops/_build.py`). Entry
 points run on the card (`device="cuda"`) unless the caller asks for the
 CPU, where every kernel's plain PyTorch version runs instead.

@@ -2,8 +2,9 @@
 of qbn_tpu/models/layers.py).
 
 Only the fields that the ported paths read are kept (INT evaluation of a
-converted checkpoint, float Bayes-by-backprop training); `Config.from_json`
-ignores the other keys of an experiment's config.json. `tpu_fused` keeps
+converted checkpoint, float and QAT training); `Config.from_json` ignores
+the other keys of an experiment's config.json, and `save` writes the
+port's fields. `tpu_fused` keeps
 qbn_tpu's name so that a config.json carries across; in the port it routes
 the BBB local-reparametrisation dense layers through the hand-written CUDA
 kernel of `ops/bbb_dense.py`.
@@ -44,6 +45,7 @@ class Config:
     output_size: int = 10
     # quantisation
     q: bool = False                       # converted-int inference
+    at: bool = False                      # quantisation-aware training
     activation_precision: int = 7         # bits, 2..7 (uint)
     weight_precision: int = 8             # bits, 2..8 (int)
     # bookkeeping
@@ -58,6 +60,10 @@ class Config:
         if "input_size" in kw:
             kw["input_size"] = tuple(kw["input_size"])
         return cls(**kw)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as fh:
+            json.dump(dataclasses.asdict(self), fh, indent=2)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -2,19 +2,26 @@
 
 * MLPNet, int mode: in -> 100 -> 100 -> 100 (ReLU) -> {mu, log_var}
   heads; returns (mu, exp(log_var)).
-* LeNet, float and int mode: conv(20, 5x5, pad 2) -> maxpool 2 ->
-  conv(50) -> maxpool 2 -> flatten -> fc 500 + ReLU -> fc out -> softmax
-  (the convs have no ReLU or BN). Returns probabilities.
-* CIFAR ResNet-18, int mode: widths 24/48/96/192, stages [2, 2, 2, 2],
-  strides 1/2/2/2, avgpool 4, fc, softmax. Returns probabilities, or the
-  int8 activations at an `up_to` cut.
+* LeNet, float, qat, convert and int modes: conv(20, 5x5, pad 2) ->
+  maxpool 2 -> conv(50) -> maxpool 2 -> flatten -> fc 500 + ReLU -> fc
+  out -> softmax (the convs have no ReLU or BN). Returns probabilities.
+* CIFAR ResNet-18, float, qat, convert and int modes: widths
+  24/48/96/192, stages [2, 2, 2, 2], strides 1/2/2/2, every conv with
+  batch norm, avgpool 4, fc, softmax. Returns probabilities, or the int8
+  activations at an `up_to` cut (int mode).
 
 As in qbn_tpu, one definition serves every method: `stochastic` makes the
 blocks Bayes-by-backprop (int mode: the merged layout over drawn weights,
 (B, S, classes) out), `dropout_p` adds the always-on MC-Dropout sites
-(int mode: S masked samples from `masks`, (S, B, classes) out); pointwise
-and an SGHMC ensemble member run the deterministic blocks on one input,
-(B, classes) out. Data layout NHWC.
+(int mode: S masked samples from `masks`, (S, B, classes) out; float and
+qat modes: one mask per site, the source's first sample); pointwise and an
+SGHMC ensemble member run the deterministic blocks on one input, (B,
+classes) out. Data layout NHWC.
+
+The float, qat and convert modes take qbn_tpu's `train` and
+`update_stats` flags, a noise source, a mask source, the `kl` dict and the
+`mutable` collections (models/layers.py); the call order of the noise and
+mask draws is qbn_tpu's.
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ from torch import nn
 
 from qbn_tpu_torch.config import QuantConfig
 from qbn_tpu_torch.models.layers import (
-    BernoulliDropout, ConvBlock, DenseBlock, InputQuant, ResidualAdd,
-    avg_pool, dequant, flatten, max_pool, scope,
+    MODES, BernoulliDropout, ConvBlock, DenseBlock, InputQuant, ResidualAdd,
+    avg_pool, child, dequant, flatten, max_pool, scope,
 )
 
 CUTS = ("stem", "stage0", "stage1", "stage2", "stage3", "pool")
@@ -46,12 +53,22 @@ class _Sites(nn.Module):
         if self.dropout_p > 0:
             self.add_module(name, BernoulliDropout(self.dropout_p, quant))
 
-    def _drop(self, name, x, variables, masks):
+    def _drop(self, name, x, variables, masks, mode="int", mutable=None,
+              **kw):
         if self.dropout_p <= 0:
             return x
         if masks is None:
             raise ValueError("an MC-Dropout model needs a mask source")
-        return getattr(self, name)(x, scope(variables, name), masks)
+        if mode == "int":
+            return getattr(self, name)(x, scope(variables, name), masks)
+        return getattr(self, name)(x, scope(variables, name), masks,
+                                   mode=mode, mutable=child(mutable, name),
+                                   **kw)
+
+
+def _check_mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"unknown mode '{mode}'")
 
 
 class MLPNet(_Sites):
@@ -132,43 +149,53 @@ class LeNet(_Sites):
 
     def forward(self, x, variables, *, train: bool = False,
                 mode: str = "float", noise=None, kl: dict = None,
-                masks=None):
+                masks=None, update_stats: bool = False,
+                mutable: dict = None, initializing: bool = False):
         """x: (B, H, W, C) float32 images; noise: the noise source of the
-        stochastic layers (float mode); kl: a dict that receives each
-        layer's KL under its name, as qbn_tpu's 'kl' collection; masks:
-        the MC-Dropout mask source (int mode). Returns (B, classes)
-        probabilities, or (S, B, classes) under MC-Dropout."""
-        if mode not in ("float", "int"):
-            raise NotImplementedError(f"LeNet mode '{mode}' is not ported")
-        if mode == "float" and self.dropout_p > 0:
-            raise NotImplementedError("float MC-Dropout is not ported")
-        kw = dict(train=train, mode=mode, noise=noise)
-        x = self.input_quant(x, scope(variables, "input_quant"), mode=mode)
+        stochastic layers (float, qat, convert); kl: a dict that receives
+        each layer's KL under its name, as qbn_tpu's 'kl' collection;
+        masks: the MC-Dropout mask source. Returns (B, classes)
+        probabilities, or (S, B, classes) under MC-Dropout in int mode."""
+        _check_mode(mode)
+        kw = dict(train=train, mode=mode, noise=noise,
+                  update_stats=update_stats, initializing=initializing)
+        dkw = dict(mode=mode, train=train, update_stats=update_stats,
+                   initializing=initializing)
+        x = self.input_quant(x, scope(variables, "input_quant"), mode=mode,
+                             update_stats=update_stats,
+                             mutable=child(mutable, "input_quant"),
+                             initializing=initializing)
         x = self.conv_0(x, scope(variables, "conv_0"),
-                        kl=_child(kl, "conv_0"), **kw)
-        x = max_pool(self._drop("drop_0", x, variables, masks), 2, 2)
+                        kl=_child(kl, "conv_0"),
+                        mutable=child(mutable, "conv_0"), **kw)
+        x = self._drop("drop_0", x, variables, masks, mutable=mutable, **dkw)
+        x = max_pool(x, 2, 2)
         x = self.conv_1(x, scope(variables, "conv_1"),
-                        kl=_child(kl, "conv_1"), **kw)
-        x = max_pool(self._drop("drop_1", x, variables, masks), 2, 2)
+                        kl=_child(kl, "conv_1"),
+                        mutable=child(mutable, "conv_1"), **kw)
+        x = self._drop("drop_1", x, variables, masks, mutable=mutable, **dkw)
+        x = max_pool(x, 2, 2)
         x = flatten(x)                      # (h, w, c) order, as in NHWC
         x = self.fc_0(x, scope(variables, "fc_0"), kl=_child(kl, "fc_0"),
-                      **kw)
-        x = self._drop("drop_2", x, variables, masks)
+                      mutable=child(mutable, "fc_0"), **kw)
+        x = self._drop("drop_2", x, variables, masks, mutable=mutable, **dkw)
         x = self.fc_1(x, scope(variables, "fc_1"), kl=_child(kl, "fc_1"),
-                      **kw)
+                      mutable=child(mutable, "fc_1"), **kw)
         return torch.softmax(dequant(x), dim=-1)
 
 
 class BasicBlock(_Sites):
-    """ResNet basic block: two 3x3 conv+BN, optional 1x1 shortcut, and
-    the MC-Dropout sites after each conv."""
+    """ResNet basic block: two 3x3 conv+BN, optional 1x1 conv+BN shortcut,
+    the MC-Dropout sites after each conv, and the residual add + ReLU."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  stochastic: bool = False, dropout_p: float = 0.0,
+                 sigma_prior: float = 1.0,
                  quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.dropout_p = dropout_p
-        kw = dict(stochastic=stochastic, quant=quant)
+        kw = dict(bn=True, stochastic=stochastic, sigma_prior=sigma_prior,
+                  std_init=-10.0, quant=quant)
         self.conv_bn_relu = ConvBlock(planes, (3, 3), (stride, stride),
                                       padding=1, relu=True, **kw)
         self._site("drop_0", quant)
@@ -181,34 +208,62 @@ class BasicBlock(_Sites):
             self._site("drop_sc", quant)
         self.add = ResidualAdd(quant, relu=True)
 
-    def forward(self, x, variables, masks=None):
-        out = self.conv_bn_relu(x, scope(variables, "conv_bn_relu"),
-                                mode="int")
-        out = self._drop("drop_0", out, variables, masks)
-        out = self.conv_bn(out, scope(variables, "conv_bn"), mode="int")
-        out = self._drop("drop_1", out, variables, masks)
+    def init(self, generator, cin: int):
+        params = {"conv_bn_relu": self.conv_bn_relu.init(generator, cin)}
+        planes = self.conv_bn_relu.features
+        params["conv_bn"] = self.conv_bn.init(generator, planes)
+        if self.shortcut is not None:
+            params["shortcut"] = self.shortcut.init(generator, cin)
+        return params
+
+    def forward(self, x, variables, masks=None, *, mode: str = "int",
+                train: bool = False, update_stats: bool = False, noise=None,
+                kl: dict = None, mutable: dict = None,
+                initializing: bool = False):
+        kw = dict(train=train, mode=mode, noise=noise,
+                  update_stats=update_stats, initializing=initializing)
+        dkw = dict(mode=mode, train=train, update_stats=update_stats,
+                   initializing=initializing, mutable=mutable)
+
+        def conv(name, inp):
+            return getattr(self, name)(inp, scope(variables, name),
+                                       kl=_child(kl, name),
+                                       mutable=child(mutable, name), **kw)
+
+        out = conv("conv_bn_relu", x)
+        out = self._drop("drop_0", out, variables, masks, **dkw)
+        out = conv("conv_bn", out)
+        out = self._drop("drop_1", out, variables, masks, **dkw)
         shortcut = x
         if self.shortcut is not None:
-            shortcut = self.shortcut(x, scope(variables, "shortcut"),
-                                     mode="int")
-            shortcut = self._drop("drop_sc", shortcut, variables, masks)
-        return self.add(out, shortcut, scope(variables, "add"))
+            shortcut = conv("shortcut", x)
+            shortcut = self._drop("drop_sc", shortcut, variables, masks,
+                                  **dkw)
+        if mode == "int":
+            return self.add(out, shortcut, scope(variables, "add"))
+        return self.add(out, shortcut, scope(variables, "add"), mode=mode,
+                        update_stats=update_stats,
+                        mutable=child(mutable, "add"),
+                        initializing=initializing)
 
 
 class ResNet(_Sites):
-    """CIFAR ResNet-18 at widths 24/48/96/192, int mode."""
+    """CIFAR ResNet-18 at widths 24/48/96/192."""
 
     def __init__(self, output_size: int = 10,
                  widths: Sequence[int] = (24, 48, 96, 192),
                  num_blocks: Sequence[int] = (2, 2, 2, 2),
                  strides: Sequence[int] = (1, 2, 2, 2),
                  stochastic: bool = False, dropout_p: float = 0.0,
+                 sigma_prior: float = 1.0,
                  quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.stochastic, self.dropout_p = stochastic, dropout_p
         self.input_quant = InputQuant(quant)
-        self.stem = ConvBlock(widths[0], (3, 3), (1, 1), padding=1,
-                              relu=True, stochastic=stochastic, quant=quant)
+        self.stem = ConvBlock(widths[0], (3, 3), (1, 1), padding=1, bn=True,
+                              relu=True, stochastic=stochastic,
+                              sigma_prior=sigma_prior, std_init=-10.0,
+                              quant=quant)
         self._site("drop_stem", quant)
         self.stages = []
         in_planes = widths[0]
@@ -219,33 +274,64 @@ class ResNet(_Sites):
                 name = f"stage{s}_block{b}"
                 self.add_module(name, BasicBlock(
                     in_planes, planes, stride if b == 0 else 1, stochastic,
-                    dropout_p, quant))
+                    dropout_p, sigma_prior, quant))
                 names.append(name)
                 in_planes = planes
             self.stages.append(names)
         self.fc = DenseBlock(output_size, use_bias=False,
-                             stochastic=stochastic, quant=quant)
+                             stochastic=stochastic, sigma_prior=sigma_prior,
+                             std_init=-3.0, quant=quant)
 
-    def forward(self, x, variables, up_to: str = None, masks=None):
-        """x: (B, H, W, C) float32 images; variables: {'qconst': ...} and,
-        for Bayes-by-backprop, 'sampled' with (S, ...) weight codes per
-        stochastic layer; masks: the MC-Dropout mask source. Returns
-        (B, S, classes) probabilities (BBB), (S, B, classes) (MC-Dropout)
-        or (B, classes), or the codes at `up_to` (one of CUTS)."""
-        if up_to is not None and up_to not in CUTS:
-            raise ValueError(f"up_to must be one of {CUTS}")
-        x = self.input_quant(x, scope(variables, "input_quant"), mode="int")
-        x = self.stem(x, scope(variables, "stem"), mode="int")
-        x = self._drop("drop_stem", x, variables, masks)
+    def init(self, generator, input_size: Sequence[int]):
+        """The 'params' tree for (H, W, C) inputs."""
+        _h, _w, c = input_size
+        params = {"stem": self.stem.init(generator, c)}
+        cin = self.stem.features
+        for names in self.stages:
+            for name in names:
+                block = getattr(self, name)
+                params[name] = block.init(generator, cin)
+                cin = block.conv_bn.features
+        params["fc"] = self.fc.init(generator, cin)
+        return params
+
+    def forward(self, x, variables, up_to: str = None, masks=None, *,
+                mode: str = "int", train: bool = False,
+                update_stats: bool = False, noise=None, kl: dict = None,
+                mutable: dict = None, initializing: bool = False):
+        """x: (B, H, W, C) float32 images; variables: the state (in int
+        mode {'qconst': ...} and, for Bayes-by-backprop, 'sampled' with
+        (S, ...) weight codes per stochastic layer); masks: the MC-Dropout
+        mask source; noise, kl, mutable as for the LeNet. Returns (B, S,
+        classes) probabilities (BBB, int), (S, B, classes) (MC-Dropout,
+        int) or (B, classes), or the codes at `up_to` (one of CUTS, int
+        mode)."""
+        _check_mode(mode)
+        if up_to is not None and (up_to not in CUTS or mode != "int"):
+            raise ValueError(f"up_to must be one of {CUTS}, in int mode")
+        kw = dict(train=train, mode=mode, noise=noise,
+                  update_stats=update_stats, initializing=initializing)
+        dkw = dict(mode=mode, train=train, update_stats=update_stats,
+                   initializing=initializing, mutable=mutable)
+        x = self.input_quant(x, scope(variables, "input_quant"), mode=mode,
+                             update_stats=update_stats,
+                             mutable=child(mutable, "input_quant"),
+                             initializing=initializing)
+        x = self.stem(x, scope(variables, "stem"), kl=_child(kl, "stem"),
+                      mutable=child(mutable, "stem"), **kw)
+        x = self._drop("drop_stem", x, variables, masks, **dkw)
         if up_to == "stem":
             return x
         for s, names in enumerate(self.stages):
             for name in names:
-                x = getattr(self, name)(x, scope(variables, name), masks)
+                x = getattr(self, name)(
+                    x, scope(variables, name), masks, kl=_child(kl, name),
+                    mutable=child(mutable, name), **kw)
             if up_to == f"stage{s}":
                 return x
         x = flatten(avg_pool(x, 4))
         if up_to == "pool":
             return x
-        x = self.fc(x, scope(variables, "fc"), mode="int")
+        x = self.fc(x, scope(variables, "fc"), kl=_child(kl, "fc"),
+                    mutable=child(mutable, "fc"), **kw)
         return torch.softmax(dequant(x), dim=-1)

@@ -4,10 +4,14 @@ conv_resnet} and the method suffix '' (pointwise), '_mc' (MC-Dropout),
 '_bbb' or '_sgld' (an SGHMC ensemble: the pointwise templates, its members
 stacked on a leading axis of the state, evaluation/ensemble.py).
 
-Ported: the float LeNet (pointwise, BBB) and converted-int models: the
-ResNet-18 of every method, the LeNet and the regression MLP of pointwise,
-MC-Dropout and SGHMC. Any other name or mode raises. The model carries its
-`method` and `task`, on which `evaluation.mc.evaluate` dispatches.
+Ported: float training of the LeNet (pointwise, BBB) and of the
+ResNet-18 (pointwise, MC-Dropout, BBB); QAT and convert of the ResNet-18
+of those three methods and of the LeNet (pointwise, BBB); converted-int
+evaluation of every architecture and method. Any other name or phase
+raises. As in qbn_tpu, a model whose config sets `q` or `at` carries the
+quantisation machinery, and one model serves its float, qat, convert and
+int modes. The model carries its `method` and `task`, on which
+`evaluation.mc.evaluate` dispatches.
 """
 
 from __future__ import annotations
@@ -21,29 +25,44 @@ from qbn_tpu_torch.models.architectures import LeNet, MLPNet, ResNet
 from qbn_tpu_torch.training.checkpoint import checkpoint_path, read_checkpoint
 from qbn_tpu_torch.utils import resolve_device
 
-_INT_METHODS = ("pointwise", "mcdropout", "sgld")
-# (arch, method, converted int?) of the ported models
-_PORTED = ({("conv_lenet", "bbb", False), ("conv_lenet", "pointwise", False),
-            ("conv_resnet", "bbb", True)}
-           | {(a, m, True) for a in ("linear", "conv_lenet", "conv_resnet")
-              for m in _INT_METHODS})
+# (arch, method) of the ported models, by phase
+_PORTED = {
+    "float": {("conv_lenet", "bbb"), ("conv_lenet", "pointwise"),
+              ("conv_resnet", "pointwise"), ("conv_resnet", "mcdropout"),
+              ("conv_resnet", "bbb")},
+    "qat": {("conv_resnet", "pointwise"), ("conv_resnet", "mcdropout"),
+            ("conv_resnet", "bbb"), ("conv_lenet", "pointwise"),
+            ("conv_lenet", "bbb")},
+    "int": {(a, m) for a in ("linear", "conv_lenet", "conv_resnet")
+            for m in ("pointwise", "mcdropout", "sgld", "bbb")},
+}
+
+
+def check_ported(cfg: Config, phase: str) -> None:
+    """Raise unless the model of `cfg` is ported for `phase` ('float',
+    'qat' (QAT and convert) or 'int')."""
+    if (cfg.arch, cfg.method) not in _PORTED[phase]:
+        names = sorted(a + {"pointwise": "", "mcdropout": "_mc",
+                            "bbb": "_bbb", "sgld": "_sgld"}[m]
+                       for a, m in _PORTED[phase])
+        raise NotImplementedError(
+            f"model '{cfg.model}' is not ported for the {phase} phase; "
+            f"ported: {', '.join(names)}")
 
 
 def build_model(cfg: Config):
     method = cfg.method
-    if (cfg.arch, method, bool(cfg.q)) not in _PORTED:
-        raise NotImplementedError(
-            f"model '{cfg.model}' with q={cfg.q} is not ported; ported: "
-            "conv_lenet[_bbb] float; conv_resnet[_bbb|_mc|_sgld], "
-            "conv_lenet[_mc|_sgld] and linear[_mc|_sgld] int")
-    quant = QuantConfig(enabled=bool(cfg.q), a_bits=cfg.activation_precision,
+    quantized = bool(cfg.q or cfg.at)
+    check_ported(cfg, "int" if quantized else "float")
+    quant = QuantConfig(enabled=quantized, a_bits=cfg.activation_precision,
                         w_bits=cfg.weight_precision, tpu_fused=cfg.tpu_fused)
     kw = dict(stochastic=method == "bbb",
               dropout_p=cfg.p if method == "mcdropout" else 0.0, quant=quant)
     if cfg.arch == "linear":
         model = MLPNet(output_size=1, **kw)
     elif cfg.arch == "conv_resnet":
-        model = ResNet(output_size=cfg.output_size, **kw)
+        model = ResNet(output_size=cfg.output_size,
+                       sigma_prior=cfg.sigma_prior, **kw)
     else:
         model = LeNet(output_size=cfg.output_size,
                       sigma_prior=cfg.sigma_prior, **kw)

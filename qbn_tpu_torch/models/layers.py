@@ -10,8 +10,22 @@ wrote, under the same path.
 Each block's `forward` takes qbn_tpu's `mode`: 'float' (the float32
 forward; Bayes-by-backprop blocks train by local reparametrisation and
 evaluate on one weight sample, drawing from a noise source, and write
-their KL into the `kl` dict given) or 'int'. `init` makes a block's
-'params' subtree with qbn_tpu's init laws from a torch.Generator.
+their KL into the `kl` dict given), 'qat' (the fake-quantised forward:
+weights, stds and activations through their observers, batch norm folded
+into the conv's weights as qbn_tpu folds it), 'convert' (the 'qat' eval
+forward that also writes the block's int constants, 'qconst') or 'int'.
+`init` makes a block's 'params' subtree with qbn_tpu's init laws from a
+torch.Generator.
+
+State that a forward updates (batch norm's running statistics in
+'batch_stats', the observers in 'quant', the int constants in 'qconst')
+is read from `variables` and written into `mutable`: a dict of the
+collections the call may write, each narrowed to the module as
+`variables` is, as flax returns the mutable collections of an `apply`.
+A collection absent from `mutable` is not written. With `initializing`
+a call declares every variable it reads (fresh observers, unit running
+variance, qbn_tpu's qconst placeholders) and updates none, as flax's
+`init` does.
 
 INT Monte-Carlo evaluation of Bayes-by-backprop runs every posterior
 sample in ONE forward: conv activations are (B, H, W, S*C) int8 codes with
@@ -36,6 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from qbn_tpu_torch.config import QuantConfig
+from qbn_tpu_torch.quant.bn_fold import fuse_conv_bn_weights, sqrt_rn
+from qbn_tpu_torch.quant.fake_quant import fake_quantize, quantize
+from qbn_tpu_torch.quant.observer import (
+    calculate_qparams, obs_init, obs_update)
 from qbn_tpu_torch.ops.integer import (
     int_conv, int_conv_merged, int_dense, int_dense_merged)
 from qbn_tpu_torch.ops.stochastic import (
@@ -75,6 +93,100 @@ def scope(variables, name: str):
     """The variables of child module `name`: each collection's subtree."""
     return {c: tree[name] for c, tree in variables.items()
             if isinstance(tree, dict) and name in tree}
+
+
+def child(mutable, name: str):
+    """The subtree of child `name` in each collection of `mutable` (None
+    when the call writes none), made where missing."""
+    if mutable is None:
+        return None
+    return {c: tree.setdefault(name, {}) for c, tree in mutable.items()}
+
+
+def _write(mutable, collection: str, name: str, value):
+    if mutable is not None and collection in mutable:
+        mutable[collection][name] = value
+
+
+class Observers:
+    """The observers of one module call (port of qbn_tpu's QuantOps
+    mixin): each named state is read from the 'quant' collection of
+    `variables` (fresh where absent), updated by the observed tensor when
+    `update`, and written into `mutable`'s 'quant'."""
+
+    def __init__(self, variables, mutable, update: bool, device):
+        self.current = dict(variables.get("quant", {}))
+        self.mutable, self.update, self.device = mutable, update, device
+
+    def state(self, name: str):
+        st = self.current.get(name)
+        return obs_init(self.device) if st is None else st
+
+    def declare(self, name: str):
+        """The observer exists (float mode keeps qbn_tpu's tree)."""
+        _write(self.mutable, "quant", name, self.state(name))
+
+    def fq(self, name: str, x, bounds):
+        """Observe x (when updating) and fake-quantise it with the qparams
+        of the UPDATED state (qbn_tpu's _fq)."""
+        st = self.state(name)
+        if self.update:
+            st = obs_update(st, x)
+        self.current[name] = st
+        _write(self.mutable, "quant", name, st)
+        scale, zp = calculate_qparams(st["min_val"], st["max_val"], *bounds)
+        return fake_quantize(x, scale, zp, *bounds)
+
+    def qparams(self, name: str, bounds):
+        st = self.state(name)
+        return calculate_qparams(st["min_val"], st["max_val"], *bounds)
+
+
+def _qc_placeholder(shapes, device):
+    """qbn_tpu's zero-filled qconst placeholder: scales 1.0, zero points
+    0, code arrays zeros."""
+    out = {}
+    for k, v in shapes.items():
+        if v == "scalar_f":
+            out[k] = torch.ones((), device=device)
+        elif v == "scalar_i":
+            out[k] = torch.zeros((), dtype=torch.int32, device=device)
+        else:
+            out[k] = torch.zeros(v, dtype=torch.int8, device=device)
+    return out
+
+
+def _block_placeholder(kshape, stochastic: bool, quant: QuantConfig,
+                       device, bias_features: Optional[int] = None):
+    """The qconst placeholder of a dense or conv block (a conv's with
+    its folded bias, `bias_features` zeros)."""
+    scalars = {}
+    for name in ("w", "std", "mul", "add", "act"):
+        scalars[f"{name}_scale"] = "scalar_f"
+        scalars[f"{name}_zp"] = "scalar_i"
+    out = _qc_placeholder({"w_codes": kshape, "std_codes": kshape,
+                           **scalars}, device)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+    if bias_features is not None:
+        out["bias_f"] = torch.zeros((bias_features,), device=device)
+    out.update(is_stoch=i32(int(stochastic)), w_lo=i32(quant.w_bounds[0]),
+               w_hi=i32(quant.w_bounds[1]))
+    return out
+
+
+def _write_scalar_qconst(mutable, obs, name, keys, bounds, initializing):
+    """Convert of a block whose constants are one (scale, zp) pair (the
+    dropout multiply, the residual add, the input quantiser)."""
+    device = obs.device
+    if initializing:
+        value = _qc_placeholder({keys[0]: "scalar_f", keys[1]: "scalar_i"},
+                                device)
+    else:
+        s, z = obs.qparams(name, bounds)
+        value = {keys[0]: s, keys[1]: z}
+    _write(mutable, "qconst", "q", value)
 
 
 def quantize_codes(x, scale, zp, a_lo: int, a_hi: int):
@@ -138,6 +250,36 @@ def _sampled(variables):
     return sampled["w"]
 
 
+MODES = ("float", "qat", "convert", "int")
+
+
+def _current_qconst(variables, kshape, stochastic, quant, device):
+    """A copy of the block's qconst entry, or qbn_tpu's placeholder:
+    convert rewrites the entries it computes and keeps the others (a
+    deterministic block's std and noise constants)."""
+    qc = variables.get("qconst", {}).get("q")
+    if qc is None:
+        return _block_placeholder(tuple(kshape), stochastic, quant, device)
+    return dict(qc)
+
+
+def _weight_qconst(obs, quant, w, sp):
+    """The weight, std and activation constants of a dense or conv block
+    from its observers (qbn_tpu's _write_qconst): w the (folded) weight,
+    sp the (folded) softplus std of a stochastic block, else None."""
+    wb, ab = quant.w_bounds, quant.a_bounds
+    ws, wz = obs.qparams("weight", wb)
+    out = {"w_codes": quantize(w, ws, wz, *wb), "w_scale": ws, "w_zp": wz}
+    if sp is not None:
+        ss, sz = obs.qparams("std_w", wb)
+        out.update(std_codes=quantize(sp, ss, sz, *wb), std_scale=ss,
+                   std_zp=sz)
+        out["mul_scale"], out["mul_zp"] = obs.qparams("mul_noise", wb)
+        out["add_scale"], out["add_zp"] = obs.qparams("add_weight", wb)
+    out["act_scale"], out["act_zp"] = obs.qparams("act", ab)
+    return out
+
+
 def _sow_kl(kl, kernel, sp, sigma_prior):
     """KL of the posterior against the zero-mean sigma_prior Gaussian prior
     into kl['kl'] (qbn_tpu's sow into the 'kl' collection)."""
@@ -164,26 +306,70 @@ class DenseBlock(nn.Module):
                             self.use_bias, in_features)
 
     def forward(self, x, variables, *, train: bool = False,
-                mode: str = "float", noise=None, kl: Optional[dict] = None):
+                mode: str = "float", noise=None, kl: Optional[dict] = None,
+                update_stats: bool = False, mutable: Optional[dict] = None,
+                initializing: bool = False):
         if mode == "int":
             return self._int_forward(x, variables)
-        if mode != "float":
-            raise NotImplementedError(f"mode '{mode}' is not ported")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode '{mode}'")
         p = variables["params"]
-        kernel, bias = p["kernel"], p.get("bias")
+        kernel, std, bias = p["kernel"], p.get("std"), p.get("bias")
+        if initializing and self.quant.enabled:
+            _write(mutable, "qconst", "q", _block_placeholder(
+                tuple(kernel.shape), self.stochastic, self.quant,
+                kernel.device))
+        sp = softplus(std) if self.stochastic else None
+        if self.stochastic:
+            _sow_kl(kl, kernel, sp, self.sigma_prior)
+        if mode == "float":
+            y = self._float_forward(x, kernel, sp, bias, train, noise)
+            return torch.relu(y) if self.relu else y
+        obs = Observers(variables, mutable, update_stats and not initializing,
+                        kernel.device)
+        y = self._qat_forward(x, kernel, sp, bias, train, noise, obs)
+        if self.relu:
+            y = torch.relu(y)
+        y = obs.fq("act", y, self.quant.a_bounds)
+        if mode == "convert" and not initializing:
+            self._write_qconst(variables, mutable, obs, kernel, std)
+        return y
+
+    def _float_forward(self, x, kernel, sp, bias, train, noise):
         if not self.stochastic:
             y = torch.matmul(x, kernel)
-            y = y + bias if bias is not None else y
-        else:
-            sp = softplus(p["std"])
-            _sow_kl(kl, kernel, sp, self.sigma_prior)
-            if train:
-                y = local_reparam_dense_auto(x, kernel, sp, noise, bias,
-                                             fused=self.quant.tpu_fused)
-            else:
-                y = torch.matmul(x, sample_weights(kernel, sp, noise))
-                y = y + bias if bias is not None else y
-        return torch.relu(y) if self.relu else y
+            return y + bias if bias is not None else y
+        if train:
+            return local_reparam_dense_auto(x, kernel, sp, noise, bias,
+                                            fused=self.quant.tpu_fused)
+        y = torch.matmul(x, sample_weights(kernel, sp, noise))
+        return y + bias if bias is not None else y
+
+    def _qat_forward(self, x, kernel, sp, bias, train, noise, obs):
+        wb = self.quant.w_bounds
+        w_fq = obs.fq("weight", kernel, wb)
+        if not self.stochastic:
+            y = torch.matmul(x, w_fq)
+            return y + bias if bias is not None else y
+        std_fq = obs.fq("std_w", sp, wb)
+        if train:
+            return local_reparam_dense_auto(x, w_fq, std_fq, noise, bias,
+                                            fused=self.quant.tpu_fused)
+        # eval: one weight sample through the observed multiply and add
+        eps = noise(kernel.shape, kernel.device)
+        prod = obs.fq("mul_noise", eps * std_fq, wb)
+        w_s = obs.fq("add_weight", w_fq + prod, wb)
+        y = torch.matmul(x, w_s)
+        return y + bias if bias is not None else y
+
+    def _write_qconst(self, variables, mutable, obs, kernel, std):
+        entry = _current_qconst(variables, kernel.shape, self.stochastic,
+                                self.quant, kernel.device)
+        with torch.no_grad():
+            entry.update(_weight_qconst(obs, self.quant, kernel,
+                                        softplus(std) if self.stochastic
+                                        else None))
+        _write(mutable, "qconst", "q", entry)
 
     def _int_forward(self, x, variables):
         qc = variables["qconst"]["q"]
@@ -214,54 +400,161 @@ class DenseBlock(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv + optional fused ReLU, pointwise or Bayes-by-backprop. Float
-    mode has no batch norm yet; in int mode BN is folded into the int
-    constants."""
+    """Conv (+ optional batch norm) + optional fused ReLU, pointwise or
+    Bayes-by-backprop. QAT with batch norm folds it as qbn_tpu does: the
+    weight and the softplus std are scaled by bn_scale / running std
+    before their fake quant, the conv output is divided by that factor,
+    the bias added, and the real batch norm applied; convert folds BN
+    fully into the int constants, which int mode reads."""
 
     def __init__(self, features: int, kernel_size: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1), padding: int = 0,
                  use_bias: bool = False, stochastic: bool = False,
-                 relu: bool = False, sigma_prior: float = 1.0,
-                 std_init: float = -10.0, quant: QuantConfig = QuantConfig()):
+                 bn: bool = False, relu: bool = False,
+                 sigma_prior: float = 1.0, std_init: float = -10.0,
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.features, self.kernel_size = features, tuple(kernel_size)
         self.strides, self.padding = tuple(strides), padding
         self.use_bias, self.stochastic, self.relu = use_bias, stochastic, relu
+        self.bn, self.bn_eps, self.bn_momentum = bn, bn_eps, bn_momentum
         self.sigma_prior, self.std_init, self.quant = (sigma_prior, std_init,
                                                        quant)
 
     def init(self, generator, cin: int):
         kshape = (*self.kernel_size, cin, self.features)
-        return _init_params(generator, kshape, self.features,
-                            self.stochastic, self.std_init, self.use_bias,
-                            math.prod(kshape[:3]))
+        params = _init_params(generator, kshape, self.features,
+                              self.stochastic, self.std_init, self.use_bias,
+                              math.prod(kshape[:3]))
+        if self.bn:
+            params["bn_scale"] = torch.ones((self.features,))
+            params["bn_bias"] = torch.zeros((self.features,))
+        return params
 
     def out_hw(self, h: int, w: int) -> Tuple[int, int]:
         (kh, kw), (sh, sw), p = self.kernel_size, self.strides, self.padding
         return (h + 2 * p - kh) // sh + 1, (w + 2 * p - kw) // sw + 1
 
     def forward(self, x, variables, *, train: bool = False,
-                mode: str = "float", noise=None, kl: Optional[dict] = None):
+                mode: str = "float", noise=None, kl: Optional[dict] = None,
+                update_stats: bool = False, mutable: Optional[dict] = None,
+                initializing: bool = False):
         if mode == "int":
             return self._int_forward(x, variables)
-        if mode != "float":
-            raise NotImplementedError(f"mode '{mode}' is not ported")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode '{mode}'")
         p = variables["params"]
-        kernel, bias = p["kernel"], p.get("bias")
-        if not self.stochastic:
-            y = conv_nhwc(x, kernel, self.strides, self.padding)
-            y = y + bias if bias is not None else y
-        else:
-            sp = softplus(p["std"])
+        kernel, std, bias = p["kernel"], p.get("std"), p.get("bias")
+        update = update_stats and not initializing
+        stats = None
+        if self.bn:
+            stats = variables.get("batch_stats")
+            if stats is None:
+                stats = {"mean": torch.zeros((self.features,),
+                                             device=kernel.device),
+                         "var": torch.ones((self.features,),
+                                           device=kernel.device)}
+            if initializing:
+                _write(mutable, "batch_stats", "mean", stats["mean"])
+                _write(mutable, "batch_stats", "var", stats["var"])
+        if initializing and self.quant.enabled:
+            _write(mutable, "qconst", "q", _block_placeholder(
+                tuple(kernel.shape), self.stochastic, self.quant,
+                kernel.device, self.features))
+        sp = softplus(std) if self.stochastic else None
+        if self.stochastic:
             _sow_kl(kl, kernel, sp, self.sigma_prior)
-            if train:
-                y = local_reparam_conv(x, kernel, sp, noise, self.strides,
-                                       self.padding, bias)
-            else:
-                y = conv_nhwc(x, sample_weights(kernel, sp, noise),
-                              self.strides, self.padding)
-                y = y + bias if bias is not None else y
-        return torch.relu(y) if self.relu else y
+        if mode == "float":
+            y = self._conv_forward(x, kernel, sp, bias, train, noise)
+            if self.bn:
+                y = self._batch_norm(y, p, stats, train, update, mutable)
+            return torch.relu(y) if self.relu else y
+
+        obs = Observers(variables, mutable, update, kernel.device)
+        if self.bn:
+            # the folding dance: fake-quant W * sf and softplus(std) * sf
+            # with sf from the running variance BEFORE this step's update
+            sf = p["bn_scale"] / sqrt_rn(stats["var"] + self.bn_eps)
+            y = self._conv_forward(x, kernel * sf, sp, None, train, noise,
+                                   obs, std_scale_factor=sf)
+            y = y / sf
+            if bias is not None:
+                y = y + bias
+            y = self._batch_norm(y, p, stats, train, update, mutable)
+        else:
+            y = self._conv_forward(x, kernel, sp, bias, train, noise, obs)
+        if self.relu:
+            y = torch.relu(y)
+        y = obs.fq("act", y, self.quant.a_bounds)
+        if mode == "convert" and not initializing:
+            self._write_qconst(variables, mutable, obs, p, stats)
+        return y
+
+    def _conv_forward(self, x, w_eff, sp, bias, train, noise, obs=None,
+                      std_scale_factor=None):
+        """The float (obs None) or fake-quantised conv: local
+        reparametrisation in training, one weight sample in evaluation,
+        for Bayes-by-backprop. w_eff is the (BN-scaled) kernel, sp the
+        softplus std."""
+        wb = self.quant.w_bounds
+        w = obs.fq("weight", w_eff, wb) if obs is not None else w_eff
+        if not self.stochastic:
+            y = conv_nhwc(x, w, self.strides, self.padding)
+            return y + bias if bias is not None else y
+        if std_scale_factor is not None:
+            sp = sp * std_scale_factor
+        if obs is not None:
+            sp = obs.fq("std_w", sp, wb)
+        if train:
+            return local_reparam_conv(x, w, sp, noise, self.strides,
+                                      self.padding, bias)
+        eps = noise(w.shape, w.device)
+        if obs is not None:
+            prod = obs.fq("mul_noise", eps * sp, wb)
+            w_s = obs.fq("add_weight", w + prod, wb)
+        else:
+            w_s = w + sp * eps
+        y = conv_nhwc(x, w_s, self.strides, self.padding)
+        return y + bias if bias is not None else y
+
+    def _batch_norm(self, y, p, stats, train, update, mutable):
+        """Batch norm over (B, H, W): batch statistics (biased variance) in
+        training, the running ones in evaluation; with `update` the
+        running variance moves toward the UNBIASED batch variance."""
+        if train:
+            m = torch.mean(y, dim=(0, 1, 2))
+            v = torch.var(y, dim=(0, 1, 2), correction=0)
+            if update:
+                n = y.shape[0] * y.shape[1] * y.shape[2]
+                unbiased = v.detach() * n / max(n - 1, 1)
+                mom = self.bn_momentum
+                _write(mutable, "batch_stats", "mean",
+                       (1 - mom) * stats["mean"] + mom * m.detach())
+                _write(mutable, "batch_stats", "var",
+                       (1 - mom) * stats["var"] + mom * unbiased)
+        else:
+            m, v = stats["mean"], stats["var"]
+        y = (y - m) * torch.rsqrt(v + self.bn_eps)
+        return y * p["bn_scale"] + p["bn_bias"]
+
+    def _write_qconst(self, variables, mutable, obs, p, stats):
+        kernel, std, bias = p["kernel"], p.get("std"), p.get("bias")
+        entry = _current_qconst(variables, kernel.shape, self.stochastic,
+                                self.quant, kernel.device)
+        with torch.no_grad():
+            sp = softplus(std) if std is not None else None
+            w, b = kernel, bias
+            if self.bn:
+                w, b, folded_std = fuse_conv_bn_weights(
+                    kernel, bias, std, stats["mean"], stats["var"],
+                    self.bn_eps, p["bn_scale"], p["bn_bias"])
+                sp = softplus(folded_std) if folded_std is not None else None
+            entry.update(_weight_qconst(obs, self.quant, w, sp))
+            entry["bias_f"] = (b.detach() if b is not None else
+                               torch.zeros((self.features,),
+                                           device=kernel.device))
+        _write(mutable, "qconst", "q", entry)
 
     def _int_forward(self, x, variables):
         qc = variables["qconst"]["q"]
@@ -290,24 +583,50 @@ class ConvBlock(nn.Module):
 
 
 class BernoulliDropout(nn.Module):
-    """Always-on Bernoulli dropout, int mode (port of the int branch of
-    qbn_tpu's BernoulliDropout, the MC-Dropout posterior): masks per
-    (sample, image, channel) for 4-D activations, per element for dense
-    ones, from `masks(shape, keep, device)` ((S, *shape) float32, see
-    ops/stochastic.py). The mask is quantised on the multiply's output grid
-    (mul_scale, mul_zp) and dequantised, the activations dequantised,
-    multiplied and requantised to that grid; the output scale is
-    mul_scale / (1 - p). On a grid of 2 or more (which 4-bit activations
-    reach) the kept mask 1.0 rounds to the zero point and every activation
-    goes to zero, as in qbn_tpu and the reference.
+    """Always-on Bernoulli dropout (the MC-Dropout posterior), port of
+    qbn_tpu's BernoulliDropout: masks per (image, channel) for 4-D
+    activations, per element for dense ones, from a mask source
+    `masks(shape, keep, device)` ((S, *shape) float32, ops/stochastic.py).
 
-    A shared input (QTensor) leaves as S samples (SampleQTensor)."""
+    float: x * mask / (1 - p), one mask (the source's first sample).
+    qat / convert: the product x * mask through the 'mul_mask' observer,
+    then / (1 - p); convert writes the multiply's grid (mul_scale,
+    mul_zp).
+    int: the mask is quantised on the multiply's output grid and
+    dequantised, the activations dequantised, multiplied and requantised
+    to that grid; the output scale is mul_scale / (1 - p). On a grid of 2
+    or more (which 4-bit activations reach) the kept mask 1.0 rounds to
+    the zero point and every activation goes to zero, as in qbn_tpu and
+    the reference. A shared input (QTensor) leaves as S samples
+    (SampleQTensor)."""
 
     def __init__(self, p: float = 0.0, quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.p, self.quant = p, quant
 
-    def forward(self, x, variables, masks):
+    def forward(self, x, variables, masks, *, mode: str = "int",
+                train: bool = False, update_stats: bool = False,
+                mutable: Optional[dict] = None, initializing: bool = False):
+        if mode == "int":
+            return self._int_forward(x, variables, masks)
+        multiplier = 1.0 / (1.0 - self.p)
+        mask_shape = ((x.shape[0], 1, 1, x.shape[-1]) if x.ndim > 2
+                      else tuple(x.shape))
+        mask = masks(mask_shape, 1.0 - self.p, x.device)[0]
+        obs = Observers(variables, mutable, update_stats and not initializing,
+                        x.device)
+        if mode == "float":
+            if self.quant.enabled and initializing:
+                obs.declare("mul_mask")
+            return x * mask * multiplier
+        y = obs.fq("mul_mask", x * mask, self.quant.a_bounds)
+        if mode == "convert":
+            _write_scalar_qconst(mutable, obs, "mul_mask",
+                                 ("mul_scale", "mul_zp"),
+                                 self.quant.a_bounds, initializing)
+        return y * multiplier
+
+    def _int_forward(self, x, variables, masks):
         qc = variables["qconst"]["q"]
         ms, mz = qc["mul_scale"], qc["mul_zp"]
         a_lo, a_hi = self.quant.a_bounds
@@ -330,15 +649,34 @@ class BernoulliDropout(nn.Module):
 
 
 class ResidualAdd(nn.Module):
-    """Quantised residual add: dequant both operands, add, requant to the
-    add observer's grid; relu folds the block's post-add ReLU in."""
+    """Residual add; relu folds the block's post-add ReLU in. qat /
+    convert observe the PRE-relu sum ('add_act'); int dequantises both
+    operands, adds and requantises to the add observer's grid."""
 
     def __init__(self, quant: QuantConfig = QuantConfig(),
                  relu: bool = False):
         super().__init__()
         self.quant, self.relu = quant, relu
 
-    def forward(self, a, b, variables):
+    def forward(self, a, b, variables, *, mode: str = "int",
+                update_stats: bool = False, mutable: Optional[dict] = None,
+                initializing: bool = False):
+        if mode == "int":
+            return self._int_forward(a, b, variables)
+        obs = Observers(variables, mutable, update_stats and not initializing,
+                        a.device)
+        if mode == "float":
+            if self.quant.enabled and initializing:
+                obs.declare("add_act")
+            y = a + b
+        else:
+            y = obs.fq("add_act", a + b, self.quant.a_bounds)
+            if mode == "convert":
+                _write_scalar_qconst(mutable, obs, "add_act", ("scale", "zp"),
+                                     self.quant.a_bounds, initializing)
+        return torch.relu(y) if self.relu else y
+
+    def _int_forward(self, a, b, variables):
         qc = variables["qconst"]["q"]
         s, z = qc["scale"], qc["zp"]
         a_lo, a_hi = self.quant.a_bounds
@@ -351,20 +689,34 @@ class ResidualAdd(nn.Module):
 
 
 class InputQuant(nn.Module):
-    """QuantStub equivalent: float input -> activation codes in int mode,
-    the input itself in float mode."""
+    """QuantStub equivalent: the input itself in float mode (its observer
+    declared when quantisation is on), fake-quantised through the 'act'
+    observer in qat / convert (convert writes its grid), codes in int
+    mode."""
 
     def __init__(self, quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.quant = quant
 
-    def forward(self, x, variables, *, mode: str = "float"):
-        if mode == "float":
+    def forward(self, x, variables, *, mode: str = "float",
+                update_stats: bool = False, mutable: Optional[dict] = None,
+                initializing: bool = False):
+        if mode == "int":
+            qc = variables["qconst"]["q"]
+            s, z = qc["scale"], qc["zp"]
+            a_lo, a_hi = self.quant.a_bounds
+            return QTensor(quantize_codes(x, s, z, a_lo, a_hi), s, z)
+        obs = Observers(variables, mutable, update_stats and not initializing,
+                        x.device)
+        if mode == "float" or not self.quant.enabled:
+            if self.quant.enabled and initializing:
+                obs.declare("act")
             return x
-        qc = variables["qconst"]["q"]
-        s, z = qc["scale"], qc["zp"]
-        a_lo, a_hi = self.quant.a_bounds
-        return QTensor(quantize_codes(x, s, z, a_lo, a_hi), s, z)
+        y = obs.fq("act", x, self.quant.a_bounds)
+        if mode == "convert":
+            _write_scalar_qconst(mutable, obs, "act", ("scale", "zp"),
+                                 self.quant.a_bounds, initializing)
+        return y
 
 
 def dequant(x):
@@ -394,9 +746,12 @@ def max_pool(x, window: int = 2, stride: int = 2):
 
 
 def avg_pool(x, window: int):
-    """Average pool of codes (..., H, W, C), rounding half to even
-    (FBGEMM's quantised avg-pool keeps scale/zp and rounds); windows that
-    do not fit are dropped, as with 'VALID' padding."""
+    """Average pool over (H, W), 'VALID' windows of stride `window`: float
+    NHWC activations, or codes (..., H, W, C), rounding half to even
+    (FBGEMM's quantised avg-pool keeps scale/zp and rounds)."""
+    if isinstance(x, torch.Tensor):
+        y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, window)
+        return y.permute(0, 2, 3, 1)
     *lead, h, w, c = x.codes.shape
     ho, wo = h // window, w // window
     codes = x.codes[..., :ho * window, :wo * window, :].to(torch.int32)

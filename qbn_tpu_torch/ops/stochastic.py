@@ -164,7 +164,13 @@ def local_reparam_dense_auto(x, w, sp_std, noise, bias=None,
 
 def conv_nhwc(x, w, strides, padding: int):
     """NHWC x HWIO -> NHWC convolution. The NHWC tensor viewed as NCHW is
-    channels_last, which cuDNN takes as it is."""
+    channels_last, which cuDNN takes as it is. A strided 1x1 conv without
+    padding (the ResNet's shortcuts) reads the strided pixels and runs at
+    stride 1: the same sums, and the CPU's channels_last kernel for the
+    strided 1x1 case crashes in its backward."""
+    if w.shape[:2] == (1, 1) and padding == 0 and tuple(strides) != (1, 1):
+        x = x[:, ::strides[0], ::strides[1], :]
+        strides = (1, 1)
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  stride=tuple(strides), padding=padding)
     return y.permute(0, 2, 3, 1)

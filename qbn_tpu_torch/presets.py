@@ -1,11 +1,13 @@
-"""Per-(method x tier) float-phase hyperparameter presets (port of the float
-table of qbn_tpu/presets.py, as data).
+"""Per-(method x tier x phase) hyperparameter presets (port of
+qbn_tpu/presets.py, as data).
 
 Tiers: 'regression' (MLP), 'mnist' (LeNet), 'cifar' (ResNet-18 w24). The
-table is qbn_tpu's, entry for entry; `preset` builds a Config from the
-entries whose every field the port carries, and raises for the others
-(MC-Dropout's `p`, SGHMC's burn-in and resampling fields) and for the QAT
-phase, which are not ported yet.
+float table is qbn_tpu's, entry for entry, and so is the QAT overlay (10
+epochs of SGD with momentum 0.9 at lr 1e-5, 1e-3 for MC-Dropout on CIFAR;
+batch 1024 for pointwise and SGHMC on CIFAR; gamma 0 for BBB; 'batch'
+loss scaling without a multiplier; `q` and `at` set). `preset` builds a
+Config from the entries whose every field the port carries, and raises
+for the others (SGHMC's burn-in and resampling fields).
 """
 
 from __future__ import annotations
@@ -68,11 +70,16 @@ FLOAT: Dict[tuple, dict] = {
 }
 
 
+QAT_LR_EXCEPTIONS = {("mcdropout", "cifar"): 1e-3}
+QAT_BATCH_EXCEPTIONS = {("pointwise", "cifar"): 1024, ("sgld", "cifar"): 1024}
+
+
 def preset(method: str, tier: str, phase: str = "float",
            **overrides) -> Config:
-    """The Config of one float-phase experiment cell."""
-    if phase != "float":
-        raise NotImplementedError(f"phase '{phase}' is not ported")
+    """The Config of one experiment cell; phase 'float' (float32
+    training) or 'qat' (the QAT fine-tune that precedes convert)."""
+    if phase not in ("float", "qat"):
+        raise ValueError(f"unknown phase '{phase}'")
     if (method, tier) not in FLOAT:
         raise KeyError(f"no preset for ({method}, {tier})")
     kw = dict(FLOAT[(method, tier)])
@@ -88,5 +95,16 @@ def preset(method: str, tier: str, phase: str = "float",
         input_size=_INPUT[tier],
         output_size=1 if tier == "regression" else 10,
     )
+    if phase == "qat":
+        # the QAT runner scripts use 'batch' scaling with no multiplier,
+        # sgld's included (its float phase uses 'whole')
+        kw.update(optimizer="sgd",
+                  learning_rate=QAT_LR_EXCEPTIONS.get((method, tier), 1e-5),
+                  epochs=10, at=True, q=True, lr_schedule="cosine",
+                  loss_scaling="batch", loss_multiplier=1.0)
+        if method == "bbb":
+            kw["gamma"] = 0.0
+        if (method, tier) in QAT_BATCH_EXCEPTIONS:
+            kw["batch_size"] = QAT_BATCH_EXCEPTIONS[(method, tier)]
     kw.update(overrides)
     return Config(**kw)

@@ -1,15 +1,19 @@
-"""Training step and a minimal epoch loop (port of make_train_step and the
-host loop of qbn_tpu/training/trainer.py, float mode).
+"""Training step and a minimal epoch loop (port of make_train_step,
+make_eval_step and the host loop of qbn_tpu/training/trainer.py), for
+float training and QAT fine-tuning.
 
-One step: forward with train=True drawing from the trainer's noise
-source, the KL of every Bayesian layer summed, the ELBO loss,
-torch.autograd.grad, non-finite gradients zeroed, the optimiser's
+One step: forward with train=True and update_stats=True in the trainer's
+mode ('float' or 'qat'), drawing from its noise and mask sources, so that
+batch norm's running statistics ('batch_stats') and the observers
+('quant') are updated; the KL of every Bayesian layer summed, the ELBO
+loss, torch.autograd.grad, non-finite gradients zeroed, the optimiser's
 functional update, and the whole update dropped when the loss is not
-finite (params and optimiser state keep their old values, chosen with
-torch.where on the device), then the metric-state update. As in qbn_tpu
-the 'kl' collection of the state keeps its init values; no ported float
-module has mutable statistics yet (batch norm's running stats join the
-skip when batch-norm float training is ported).
+finite: params, optimiser state, running statistics and observers keep
+their old values, chosen with torch.where on the device. Then the
+metric-state update. As in qbn_tpu the 'kl' and 'qconst' collections keep
+their values. Validation runs eval forwards (train=False); in 'qat' mode
+they update the observers (never the running statistics), as qbn_tpu's
+QAT validation does.
 
 qbn_tpu's device-resident epoch scans, SGHMC snapshots and mesh-sharded
 steps are not ported; the loop runs over given (x, y) batches.
@@ -23,19 +27,22 @@ from typing import Iterable, Optional
 import torch
 
 from qbn_tpu_torch.config import Config
-from qbn_tpu_torch.ops.stochastic import GeneratorNoise
+from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.training.losses import classification_loss
 from qbn_tpu_torch.training.optim import tree_map
 from qbn_tpu_torch.utils import (
-    full_float32, resolve_device, sum_kl, tree_leaves)
+    apply_model, full_float32, resolve_device, tree_leaves)
+
+# the collections a training forward writes
+STATS = ("batch_stats", "quant")
 
 
 @dataclasses.dataclass
 class TrainState:
     params: dict          # leaves require grad
-    model_state: dict     # the other collections ('kl')
-    opt_state: dict
+    model_state: dict     # the other collections ('batch_stats', 'quant',
+    opt_state: dict       # 'qconst', 'kl')
     step: int = 0
 
 
@@ -47,18 +54,19 @@ def _unflatten(tree, it):
 
 def make_train_step(model, cfg: Config, tx, mode: str, n_batches: int,
                     n_points: int):
-    """The training step: step(state, metric_state, x, y, noise) ->
+    """The training step: step(state, metric_state, x, y, noise, masks) ->
     (state, metric_state, logs), x (B, H, W, C) float32 and y (B,) int64
-    on the params' device, noise a noise source."""
+    on the params' device, noise a noise source, masks a mask source (for
+    MC-Dropout; one mask per site and step)."""
     if cfg.task != "classification":
         raise NotImplementedError("only classification training is ported")
 
-    def step(state: TrainState, metric_state, x, y, noise):
-        kl_tree: dict = {}
+    def step(state: TrainState, metric_state, x, y, noise, masks=None):
         with full_float32():
-            out = model(x, {"params": state.params, **state.model_state},
-                        train=True, mode=mode, noise=noise, kl=kl_tree)
-            kl = sum_kl(kl_tree)
+            out, kl, new_vars = apply_model(
+                model, {"params": state.params, **state.model_state}, x,
+                train=True, mode=mode, update_stats=True, noise=noise,
+                masks=masks)
             loss, main, kl_t = classification_loss(
                 out, y, kl, cfg.gamma, n_batches, n_points,
                 scaling=cfg.loss_scaling,
@@ -66,24 +74,55 @@ def make_train_step(model, cfg: Config, tx, mode: str, n_batches: int,
             grads = torch.autograd.grad(loss, list(tree_leaves(state.params)))
         with torch.no_grad():
             # zero non-finite grads; skip the whole step on a non-finite
-            # loss (qbn_tpu/training/trainer.py:98-127)
+            # loss (qbn_tpu/training/trainer.py:98-127), the running
+            # statistics and observers included: one overflowing batch
+            # would otherwise poison them for good
             grads = _unflatten(state.params, iter(
                 torch.where(torch.isfinite(g), g, torch.zeros_like(g))
                 for g in grads))
             ok = torch.isfinite(loss)
+
+            def keep(new, old):
+                return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+
             params = tree_map(torch.Tensor.detach, state.params)
             upd, new_opt = tx.update(grads, state.opt_state, params)
-            new_params = tree_map(
-                lambda p, u: torch.where(ok, p + u, p), params, upd)
-            new_opt = tree_map(lambda n, o: torch.where(ok, n, o), new_opt,
-                               state.opt_state)
+            new_params = keep(tree_map(torch.add, params, upd), params)
+            new_opt = keep(new_opt, state.opt_state)
+            model_state = dict(state.model_state)
+            for col in STATS:
+                if new_vars.get(col) is not state.model_state.get(col):
+                    model_state[col] = keep(new_vars[col],
+                                            state.model_state[col])
             metric_state = M.cls_metrics_update(metric_state, out.detach(),
                                                 y)
         new_params = tree_map(lambda p: p.requires_grad_(), new_params)
         logs = {"obj": loss.detach(), "main_obj": main.detach(),
                 "kl": kl_t.detach()}
-        return (TrainState(new_params, state.model_state, new_opt,
+        return (TrainState(new_params, model_state, new_opt,
                            state.step + 1), metric_state, logs)
+
+    return step
+
+
+def make_eval_step(model, cfg: Config, mode: str, update_observers: bool):
+    """The validation step: step(state, metric_state, x, y, noise, masks)
+    -> (state, metric_state); no gradient, no running-statistics update;
+    the observers update iff update_observers (QAT validation)."""
+    if cfg.task != "classification":
+        raise NotImplementedError("only classification training is ported")
+
+    def step(state: TrainState, metric_state, x, y, noise, masks=None):
+        with torch.no_grad(), full_float32():
+            out, _kl, new_vars = apply_model(
+                model, {"params": state.params, **state.model_state}, x,
+                train=False, mode=mode, update_stats=update_observers,
+                noise=noise, masks=masks)
+            model_state = {k: v for k, v in new_vars.items()
+                           if k != "params"}
+            metric_state = M.cls_metrics_update(metric_state, out, y)
+        return dataclasses.replace(state, model_state=model_state), \
+            metric_state
 
     return step
 
@@ -92,12 +131,14 @@ class Trainer:
     """Epoch loop around the training step, over given (x, y) batches."""
 
     def __init__(self, model, cfg: Config, tx, mode: str, n_batches: int,
-                 n_points: int, noise, device="cuda"):
+                 n_points: int, noise, device="cuda", masks=None):
         self.model, self.cfg, self.tx, self.mode = model, cfg, tx, mode
-        self.noise = noise
+        self.noise, self.masks = noise, masks
         self.device = resolve_device(device)
         self.train_step = make_train_step(model, cfg, tx, mode, n_batches,
                                           n_points)
+        self.eval_step = make_eval_step(model, cfg, mode,
+                                        update_observers=mode == "qat")
         self.history: list = []
 
     def init_state(self, variables) -> TrainState:
@@ -126,7 +167,7 @@ class Trainer:
         for x, y in batches:
             x, y = self._tensors(x, y)
             state, metric_state, logs = self.train_step(
-                state, metric_state, x, y, self.noise)
+                state, metric_state, x, y, self.noise, self.masks)
         out = {k: float(v) for k, v in M.cls_metrics_compute(
             metric_state).items()}
         out.update({k: float(v) for k, v in logs.items()})
@@ -134,23 +175,22 @@ class Trainer:
 
     def eval_epoch(self, state: TrainState, batches: Iterable,
                    seed: int = 0):
-        """Validation metrics: eval-mode forwards (one weight sample per
-        batch), no gradient. The weight samples come from the pass's own
-        generator, seeded from cfg.seed + 17 with `seed` (the epoch)
+        """Validation: eval-mode forwards (one weight sample and one mask
+        per site and batch), no gradient; in 'qat' mode the observers
+        update. Returns (state, metrics). The samples come from the pass's
+        own generator, seeded from cfg.seed + 17 with `seed` (the epoch)
         folded in, as qbn_tpu keys its eval (PRNGKey(cfg.seed + 17),
-        fold_in seed * 100003): never from the training noise, so the
-        training trajectory does not depend on whether validation runs."""
+        fold_in seed * 100003): never from the training sources, so the
+        training draws do not depend on whether validation runs."""
         metric_state = M.cls_metrics_init(device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(
             (self.cfg.seed + 17) * 1_000_003 + seed * 100_003)
-        noise = GeneratorNoise(gen)
-        with torch.no_grad(), full_float32():
-            for x, y in batches:
-                x, y = self._tensors(x, y)
-                out = self.model(x, self.variables(state), train=False,
-                                 mode=self.mode, noise=noise)
-                metric_state = M.cls_metrics_update(metric_state, out, y)
-        return {k: float(v) for k, v in M.cls_metrics_compute(
+        noise, masks = GeneratorNoise(gen), BernoulliMasks(gen, 1)
+        for x, y in batches:
+            x, y = self._tensors(x, y)
+            state, metric_state = self.eval_step(state, metric_state, x, y,
+                                                 noise, masks)
+        return state, {k: float(v) for k, v in M.cls_metrics_compute(
             metric_state).items()}
 
     def fit(self, state: TrainState, train_batches,
@@ -162,7 +202,7 @@ class Trainer:
             state, train_m = self.train_epoch(state, train_batches)
             row = {"epoch": epoch, "train": train_m}
             if valid_batches is not None:
-                row["valid"] = self.eval_epoch(state, valid_batches,
-                                               seed=epoch)
+                state, row["valid"] = self.eval_epoch(state, valid_batches,
+                                                      seed=epoch)
             self.history.append(row)
         return state
