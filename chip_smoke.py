@@ -11,8 +11,11 @@ MC evaluation of the ResNet-18 for MC-Dropout, pointwise and an SGHMC
 ensemble, float Bayes-by-backprop training of the MNIST LeNet on
 MNIST-shaped inputs, float training of the ResNet-18 for pointwise,
 MC-Dropout and Bayes-by-backprop, and QAT with convert to the INT states
-that the evaluation reads, on CIFAR-shaped inputs, all made from --seed
-with numpy. Phases, in order, each printing its seconds:
+that the evaluation reads, on CIFAR-shaped inputs, SGHMC training of the
+ResNet-18 from start to finish, and training, QAT, convert and INT and
+float evaluation of the regression MLP of the four methods, all on
+inputs made from --seed with numpy. Phases, in order, each printing its
+seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
   2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
@@ -61,8 +64,11 @@ with numpy. Phases, in order, each printing its seconds:
   8. methods_profile one MC-Dropout batch under torch.profiler
   9. bbb_dense the local-reparametrisation dense kernel (3xTF32) against
               its plain version and the float32 dot-product bound of a
-              float64 product at LeNet's fc_0 and fc_1 and at a ragged
-              shape, its hand-written backward against autograd,
+              float64 product at LeNet's fc_0 and fc_1, the ResNet head,
+              a ragged shape and the regression MLP's shapes (K=13 and
+              4, N=1, B=364, 1000 and 889), with the count of elements
+              not bitwise equal, its hand-written backward against
+              autograd,
               and the moments and lag-1 correlations of 10^7 of its own
               (seed-mode) normals
   10. train   `flows.fit` of the BBB LeNet with tpu_fused=True: B=256,
@@ -86,14 +92,37 @@ with numpy. Phases, in order, each printing its seconds:
               once and the conv 20 times a batch); `flows.qat` of
               pointwise and MC-Dropout from their committed float
               checkpoints, 3 steps each, and one INT batch each
-  14. times   each kernel against its plain version and its bound, in
+  14. sghmc   `flows.fit` of the sgld cifar preset (the adaptive clip
+              and SGHMC, 'whole' x 16 over CIFAR's 50,000) at B=256, 16
+              epochs of 2 steps writing 7 posterior snapshots; ms per
+              steady step; `flows.qat` of each snapshot (B=1024, 2 steps)
+              and convert; `load_trained` of the 7 members and `evaluate`
+              at B=256 (140 conv launches a batch, shared weights); the
+              float snapshots' float `evaluate` as an ensemble; SGHMC
+              steps at B=8 card against CPU with the same draws, and the
+              clip and SGHMC alone on the same inputs (SGHMC_CHAINS
+              chains, from the inits of seeds N on); the Gamma sampler's
+              moments on the card
+  15. regression the MLP of the four methods (qbn_tpu's regression
+              presets, tpu_fused) on housing's and power's table shapes:
+              `flows.fit` with the fold's special_info (the dense kernel
+              5 times a BBB step), ms per step, `flows.qat` and convert
+              (per snapshot for sgld), `load_trained` and the INT and
+              float `evaluate` on the test rows (the draw once a BBB
+              batch, and the draw at the converted BBB MLP's layers held
+              bitwise against its plain version, with explicit noise and
+              seeded); on housing, one step card against CPU at B=8 per
+              method and the BBB kernel path against the plain path
+  16. times   each kernel against its plain version and its bound, in
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
               against the float64 cuDNN conv alone and, at every shape
               that takes the halo or the pixel body, the im2col body; the
               draw kernel against its bound restated with the Philox
               integer work, and in its explicit-noise mode; the dense
-              kernel also at the ResNet head; the conv kernel with shared
+              kernel also at the ResNet head and the MLP's dense_0 and
+              heads, and in seed mode against torch.randn + two cuBLAS
+              products; the conv kernel with shared
               weights per
               shape of an MC-Dropout forward, bitwise against its plain
               version on random codes, and against its bound with the
@@ -143,9 +172,12 @@ from qbn_tpu_torch.ops.stochastic import (
 from qbn_tpu_torch.presets import preset
 from qbn_tpu_torch.training.metrics import (
     cls_metrics_compute, cls_metrics_init)
-from qbn_tpu_torch.training.optim import build_optimizer
-from qbn_tpu_torch.training.trainer import Trainer
-from qbn_tpu_torch.utils import full_float32, init_variables
+from qbn_tpu_torch.training.checkpoint import list_snapshots
+from qbn_tpu_torch.training.optim import build_optimizer, tree_map
+from qbn_tpu_torch.training.sghmc import GeneratorDraws, QueueDraws
+from qbn_tpu_torch.training.trainer import (
+    Trainer, TrainState, metrics_compute, metrics_init)
+from qbn_tpu_torch.utils import full_float32, init_variables, tree_leaves
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXP = os.path.join(ROOT, "examples", "campaign", "bbb-cifar-a_7_w_8-seed1")
@@ -160,9 +192,16 @@ CONV_REPLACES = "qbn_tpu/ops/pallas/conv_gemm.py:123"
 # the training path: the mnist BBB preset at its batch, 2 epochs x 10 steps
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 256, 2, 10
 # (B, K, N) of LeNet's fc_0 and fc_1 at that batch, of the ResNet-18's
-# head (fc) at the cifar batch, and a ragged shape
+# head (fc) at the cifar batch, a ragged shape, and the regression MLP's
+# layers on the regression path: housing's whole train split is one
+# batch of 364 (dense_0 K=13; the heads N=1), power's batches of 1000
+# (dense_0 K=4) and its ragged last batch of 889
 DENSE_SHAPES = [("fc_0", 256, 2450, 500), ("fc_1", 256, 500, 10),
-                ("head", 256, 192, 10), ("ragged", 250, 333, 77)]
+                ("head", 256, 192, 10), ("ragged", 250, 333, 77),
+                ("mlp_in", 364, 13, 100), ("mlp_head", 364, 100, 1),
+                ("mlp_in_power", 1000, 4, 100),
+                ("mlp_hidden", 1000, 100, 100),
+                ("mlp_ragged", 889, 100, 1)]
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # (non-tensor-core) operations/s and int8 tensor-core operations/s, at the
@@ -1331,6 +1370,41 @@ def dense_bound(x, w, sp, eps):
     return ref, bound
 
 
+def dense_bound_3xtf32(x, w, sp, eps, splits, k_chunk):
+    """Per-element bound on |kernel result - exact| of csrc/bbb_dense.cu's
+    3xTF32 products. A float32 operand a is split into hi = rna_tf32(a)
+    and lo = rna_tf32(a - hi) (a - hi exact), so a = hi + lo + d with
+    |d| <= 2^-22 |a| and |lo| <= 2^-11 (1 + 2^-11) |a|; a*b taken as
+    lo_a hi_b + hi_a lo_b + hi_a hi_b (each exact in float32) misses
+    lo_a lo_b + d_a b + d_b a - d_a d_b, at most 3.001 * 2^-22 |a b|, and
+    the three add up to at most (1 + 2^-9) |a b| in magnitude. Each
+    mma.sync adds 8 of them into the float32 accumulator, taken as the
+    exact sum rounded once with relative error at most u_acc = 2^-22 of
+    the magnitudes it adds (2^-23 for truncating to float32, as much again
+    for the alignment of the addends inside the instruction); a term
+    passes at most M = 3 ceil(min(K, k_chunk) / 8) such roundings, plus
+    one per split when the partials are added: gamma_M = M u_acc / (1 -
+    M u_acc). The variance's operands x^2 and sp^2 are float32 squares
+    (2 u more, u = 2^-24). The epilogue sqrt(1e-8 + var) * eps + mean:
+    3 u of |std eps| for the sum, the square root and the product, then
+    the last rounding, u of the result. Returns
+    (float64 reference, bound), both (B, N)."""
+    x64, w64, s64, e64 = (t.double() for t in (x, w, sp, eps))
+    k = x.shape[1]
+    u = 2.0 ** -24
+    m = 3 * math.ceil(min(k, k_chunk) / 8) + (splits if splits > 1 else 0)
+    gamma = m * 2.0 ** -22 / (1 - m * 2.0 ** -22)
+    c = 3.001 * 2.0 ** -22 + gamma * (1 + 2.0 ** -9)
+    var = (x64 * x64) @ (s64 * s64)
+    std = torch.sqrt(1e-8 + var)
+    ref = x64 @ w64 + std * e64
+    err_v = (c * (1 + 2 * u) + 2.001 * u) * var
+    low = torch.sqrt(torch.clamp(1e-8 + var - err_v, min=0.0))
+    before = (c * (x64.abs() @ w64.abs()) + err_v / (std + low)
+              * e64.abs() + 3 * u * std * e64.abs())
+    return ref, before * (1 + u) + u * ref.abs()
+
+
 def _dense_inputs(b, k, n, g, dev):
     """LeNet-like operands: activations of either sign, the BBB init's
     U(-0.01, 0.01) means, softplus(-3 +- 0.5) stds, standard normals."""
@@ -1352,20 +1426,28 @@ def phase_bbb_dense(seed, dev):
             got = bd.bbb_dense(x, w, sp, eps)
             plain = bd.bbb_dense_plain(x, w, sp, eps)
         torch.cuda.synchronize()
+        split = bd.split_k(b, k, n, bd_sms(dev))
         ref, bound = dense_bound(x, w, sp, eps)
+        _ref, bound_k = dense_bound_3xtf32(x, w, sp, eps, *split)
         err = float((got - plain).abs().max())
         max_err = max(max_err, err)
-        rk = float(((got.double() - ref).abs() / bound).max())
+        n_diff = int((got != plain).sum())
+        rk = float(((got.double() - ref).abs() / bound_k).max())
+        rk32 = float(((got.double() - ref).abs() / bound).max())
         rp = float(((plain.double() - ref).abs() / bound).max())
-        print(f"bbb_dense {name} B={b} K={k} N={n} splits,k_chunk="
-              f"{bd.split_k(b, k, n, bd_sms(dev))}: max|kernel - plain| "
-              f"{err:.3g}, |kernel - f64| / bound {rk:.4f}, |plain - f64| "
-              f"/ bound {rp:.4f}, max|out| {float(ref.abs().max()):.3g}")
+        print(f"bbb_dense {name} B={b} K={k} N={n} splits,k_chunk={split}"
+              f": max|kernel - plain| {err:.3g} ({n_diff} of {got.numel()} "
+              f"elements not bitwise equal), |kernel - f64| / 3xTF32 bound "
+              f"{rk:.4f} (/ float32 bound {rk32:.4f}), |plain - f64| / "
+              f"float32 bound {rp:.4f}, max|out| "
+              f"{float(ref.abs().max()):.3g}")
         check(got.shape == (b, n) and bool(torch.isfinite(got).all()),
               f"bbb_dense {name}: shape or non-finite")
-        check(rk <= 1.0 and rp <= 1.0, f"bbb_dense {name}: off float64 "
+        check(rk <= 1.0, f"bbb_dense {name}: the kernel off float64 beyond "
+              "the 3xTF32 bound")
+        check(rp <= 1.0, f"bbb_dense {name}: the plain version off float64 "
               "beyond the float32 dot-product bound")
-        check(bool(((got - plain).abs().double() <= 2 * bound).all()),
+        check(bool(((got - plain).abs().double() <= bound + bound_k).all()),
               f"bbb_dense {name}: kernel and plain differ beyond the "
               "sum of their bounds")
         # the hand-written backward against autograd of the plain form,
@@ -1685,14 +1767,20 @@ def phase_dense_times(seed, shape=DENSE_SHAPES[0], seed_mode=True):
         bd.bbb_dense_plain(x, w, sp, torch.randn((b, n), generator=g,
                                                  device=dev))
 
+    def library_seed():       # torch.randn, 2 GEMMs + the epilogue
+        torch.addcmul(torch.mm(x, w), torch.sqrt(torch.mm(x2, s2) + 1e-8),
+                      torch.randn((b, n), generator=g, device=dev))
+
     with full_float32():
-        ts = [cuda_ms(f, iters=50) for f in (plain_seed, kernel_seed,
-                                              kernel_seed, plain_seed)]
+        ts = [cuda_ms(f, iters=50) for f in (
+            plain_seed, kernel_seed, library_seed, library_seed,
+            kernel_seed, plain_seed)]
     seed_bytes_ms = 1e3 * (nbytes - 4 * b * n) / HBM_BYTES_PER_S
-    print(f"bbb_dense {name} seed mode: kernel {ts[1]:.4f}/{ts[2]:.4f} ms, "
-          f"randn + plain {ts[0]:.4f}/{ts[3]:.4f} ms, bound "
-          f"{max(ops_ms, seed_bytes_ms):.4f} ms by operations (the Philox "
-          "and Box-Muller work not counted)")
+    print(f"bbb_dense {name} seed mode: kernel {ts[1]:.4f}/{ts[4]:.4f} ms, "
+          f"randn + plain {ts[0]:.4f}/{ts[5]:.4f} ms, torch.randn + two "
+          f"cuBLAS float32 products + epilogue {ts[2]:.4f}/{ts[3]:.4f} ms, "
+          f"bound {max(ops_ms, seed_bytes_ms):.4f} ms by operations (the "
+          "Philox and Box-Muller work not counted)")
     return ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
@@ -1730,7 +1818,7 @@ def _cifar_batches(rng, n, batch, dev):
 
 def _steady_step_ms(trainer, state, batches):
     """ms per steady training step: CUDA events over the batches."""
-    metric = cls_metrics_init(device=trainer.device)
+    metric = metrics_init(trainer.cfg.task, trainer.device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1780,7 +1868,8 @@ def _profile_step(trainer, state, batch, what):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(state, cls_metrics_init(device=trainer.device), x,
+        trainer.train_step(state, metrics_init(trainer.cfg.task,
+                                               trainer.device), x,
                            y, trainer.noise, trainer.masks)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
@@ -2116,10 +2205,13 @@ def phase_qat(seed, dev):
 def _int_batches(method, exp_dir, seed, dev, counts):
     """load_trained of a converted directory and `evaluate` on two B=256
     batches, the counts set to 0 before and read after: the draw once a
-    BBB batch, the conv 20 times a forward. Adds to `counts`; returns
-    {what: ms of the second batch}."""
+    BBB batch, the conv 20 times a forward (a member's, for an SGHMC
+    ensemble). Adds to `counts`; returns {what: ms of the second
+    batch}."""
     cfg, model, state = load_trained(exp_dir, device=dev)
-    samples = SAMPLES if method != "pointwise" else 1
+    samples = 1 if method == "pointwise" else (
+        cfg.samples if method == "sgld" else SAMPLES)
+    forwards = cfg.samples if method == "sgld" else 1
     rng = np.random.default_rng(seed + 82)
     data = [(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
              rng.integers(0, 10, BATCH)) for _ in range(2)]
@@ -2130,13 +2222,13 @@ def _int_batches(method, exp_dir, seed, dev, counts):
     draws, convs = sw.launches, ic.launches
     by, shared = dict(ic.launches_by_design), dict(ic.launches_shared_w)
     want_draws = 2 if method == "bbb" else 0
-    check(draws == want_draws and convs == 2 * CONVS_PER_BATCH,
+    check(draws == want_draws and convs == 2 * forwards * CONVS_PER_BATCH,
           f"{method} INT after convert: {draws} draws, {convs} conv launches "
           "in 2 batches")
     want_by = ({"halo": 2 * HALO_PER_BATCH,
                 "pixel": 2 * (CONVS_PER_BATCH - HALO_PER_BATCH), "im2col": 0}
                if method == "bbb" else
-               {k: 2 * v for k, v in SHARED_BY_DESIGN.items()})
+               {k: 2 * forwards * v for k, v in SHARED_BY_DESIGN.items()})
     check(by == want_by, f"{method} INT after convert: conv launches by "
           f"design {by}, expected {want_by}")
     for p in probs:
@@ -2156,6 +2248,697 @@ def _int_batches(method, exp_dir, seed, dev, counts):
           f"{1e3 * seconds[0]:.1f}), draws {draws}, conv launches {convs} "
           f"({by}), metrics {json.dumps(metrics)}", flush=True)
     return {f"int {method} batch": 1e3 * seconds[-1]}
+
+
+# The SGHMC path: qbn_tpu's sgld cifar preset (the adaptive clip and
+# SGHMC at a constant lr 1e-2, 'whole' loss scaling x 16) at full width
+# and B=256. Cut: 300 epochs of 176 steps to SGHMC_EPOCHS of SGHMC_STEPS
+# and burn-in from 200 epochs to SGHMC_BURNIN, so that the posterior
+# snapshots land at epochs 2, 4, ..., 14: the preset's 7 members. Each
+# member's QAT (the QAT preset, B=1024) cut from 10 epochs to
+# SGHMC_QAT_STEPS steps.
+SGHMC_EPOCHS, SGHMC_BURNIN, SGHMC_STEPS = 16, 2, 2
+SGHMC_QAT_STEPS = 2
+# 'whole' loss scaling's n_points: CIFAR-10's 50,000 training images
+# before the valid split, which qbn_tpu's loaders carry as dataset_size
+CIFAR_TRAIN = 50_000
+# The card against the CPU, SGHMC_CHAIN steps at B=8: each card step
+# against a CPU step from the card's state before it, with the same
+# draws: the loss within 1e-5; per parameter tensor, the preconditioner's
+# g and v_hat within SGHMC_GRAD_RTOL norm-wise and the prior precision
+# within SGHMC_WD_RTOL (_sghmc_step_check); and the clip and SGHMC alone
+# on the same gradients, state and draws, each update and state tensor
+# within SGHMC_TX_RTOL (_sghmc_transform_check). The whole step's update
+# is not held entry by entry: from the same state the two stacks'
+# gradients differ at rounding level, and now and then by a ReLU or
+# batch-norm input that sits within rounding of zero and takes the
+# other side (the card's order of summation is not the same from run to
+# run); SGHMC then scales the difference by lr^2 |d_p|^-1/2 where |d_p|
+# is small. On an H100 80GB HBM3 at 700 W, one run's 24 steps (chains of
+# 3 from eight seeds): loss at most 1.9e-7 apart; g and v_hat 4.6e-6 to
+# 9.0e-6 apart per tensor in 19 steps, in the other 5 (a flip) g 0.0011
+# to 0.0072 and v_hat 0.0014 to 0.0094 (up to 0.020 and 0.029 in other
+# runs of the same chains), with 180 to 13,179 update entries more than
+# 10% apart (25 to 50 in the 19; up to 33,398 in other runs); the prior precision at most 1.9e-7
+# apart. A wrong gradient of a whole tensor reads 0.5 or more. The clip
+# and SGHMC alone: at most 1.3e-6 apart (the clip's threshold, a sum
+# over its window), the rest at most 4.9e-8. Then each side chained from
+# its own state, a chaotic chain compared by a statistic: its losses
+# within SGHMC_CHAIN_RTOL (read 2.6e-4 to 2.9e-3 over 3 steps).
+SGHMC_GRAD_RTOL, SGHMC_WD_RTOL, SGHMC_TX_RTOL = 0.1, 1e-5, 1e-5
+SGHMC_CHAIN, SGHMC_CHAIN_RTOL = 3, 1e-2
+# chains of SGHMC_CHAIN steps held so, from the inits of as many seeds:
+# a flip comes in one step of four or five, so that each run meets some
+SGHMC_CHAINS = 8
+
+
+class RecordingDraws:
+    """SGHMC's draws from a generator on the card, kept so that another
+    run can be given the same (`cpu_queue`)."""
+
+    def __init__(self, generator):
+        self.inner, self.drawn = GeneratorDraws(generator), []
+
+    def __call__(self, shapes, alphas, device):
+        out = self.inner(shapes, alphas, device)
+        self.drawn.append(out)
+        return out
+
+    def cpu_queue(self, steps):
+        return QueueDraws([[tuple(t.cpu() for t in leaf) for leaf in step]
+                           for step in steps])
+
+
+def _flat_modules(tree):
+    """{top-level module: its leaves flattened on the CPU}."""
+    return {m: torch.cat([v.detach().cpu().reshape(-1)
+                          for v in tree_leaves(tree[m])]) for m in tree}
+
+
+def _state_to(state, device):
+    """A TrainState on another device: params that require grad, the
+    other collections and the optimiser state copied."""
+    params = tree_map(lambda p: p.detach().requires_grad_(),
+                      to_device(state.params, device))
+    return TrainState(params, to_device(state.model_state, device),
+                      to_device(state.opt_state, device), state.step)
+
+
+def _rel(a, b):
+    """|a - b| / |b| over a tensor, in float64 on the CPU."""
+    a, b = (t.detach().cpu().double() for t in (a, b))
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def _sghmc_step_check(old, a, b, what):
+    """Two SGHMC training steps from the same state `old` (TrainStates),
+    held per parameter tensor: the preconditioner's gradient average g
+    and moment v_hat (in burn-in g follows each step's d_p = grad + wd p,
+    so a wrong gradient of any tensor moves it) within SGHMC_GRAD_RTOL
+    norm-wise, and the prior precision (weight_decay, resampled at the
+    first step) within SGHMC_WD_RTOL. The update's entries more than 10%
+    apart are printed, not held (see SGHMC_GRAD_RTOL); the update itself
+    is held by _sghmc_transform_check."""
+    olds = dict(_leaf_items(old.params))
+    pa, pb = dict(_leaf_items(a.params)), dict(_leaf_items(b.params))
+    sa, sb = a.opt_state["1"], b.opt_state["1"]
+    trees = {key: [dict(_leaf_items(t[key])) for t in (sa, sb)]
+             for key in ("g", "v_hat", "weight_decay")}
+    off = n = 0
+    worst = {key: (0.0, "") for key in trees}
+    for path, o in olds.items():
+        name = "/".join(path)
+        o = o.detach().cpu()
+        da, db = (t[path].detach().cpu() - o for t in (pa, pb))
+        off += int(((da - db).abs() > 0.1 * db.abs()).sum())
+        n += db.numel()
+        for key, (ta, tb) in trees.items():
+            worst[key] = max(worst[key], (_rel(ta[path], tb[path]), name))
+    print(f"{what}: " + "; ".join(f"{k} worst {v:.3g} ({m})" for k, (v, m)
+                                  in worst.items())
+          + f"; {off} of {n} update entries more than 10% apart")
+    for key in ("g", "v_hat"):
+        check(worst[key][0] <= SGHMC_GRAD_RTOL,
+              f"{what}: {key} of {worst[key][1]} differs")
+    check(worst["weight_decay"][0] <= SGHMC_WD_RTOL,
+          f"{what}: prior precision of {worst['weight_decay'][1]} differs")
+
+
+def _sghmc_transform_check(cfg, params, opt_state, seed, dev, what):
+    """The adaptive clip and SGHMC alone (build_optimizer's chain) on the
+    card and on the CPU, on the same inputs: the optimiser state given
+    (on the card), params and gradients of the given params' shapes made
+    from the seed, the same draws. The params are multiples of 2^-6 in
+    [-1/16, 1/16] and the gradients of 2^-8 in [-1/128, 1/128], so that
+    the sums of their squares (the prior's beta per tensor, the clip's
+    global norm) are exact in float32 in any order: otherwise their last
+    bits differ between the two stacks' orders of summation, and SGHMC
+    scales that by |d_p|^-1/2 where grad + wd p cancels. The rest is
+    elementwise, the same operations on both. One update at each of
+    SGHMC's branches, set by its count: 0 (burn-in, momentum and prior
+    resampled), 1 (burn-in only), the first multiple of both resampling
+    periods past burn-in (both resampled) and the count after it
+    (neither); the clip with its state given, and with its window full
+    and the threshold below the gradients' norm (clipped, not written) or
+    above it (written; the threshold moves). Every update and every new
+    state tensor within SGHMC_TX_RTOL norm-wise per parameter tensor, the
+    counts equal. Returns the worst reading."""
+    cpu = torch.device("cpu")
+    rec = RecordingDraws(torch.Generator(device=dev).manual_seed(seed))
+    host_q = QueueDraws([])
+    txs = [build_optimizer(cfg, 1, sghmc_draws=d)[0] for d in (rec, host_q)]
+    g = torch.Generator().manual_seed(seed)
+
+    def grid(like, k, step):
+        return (torch.randint(-k, k + 1, like.shape, generator=g)
+                * step).to(torch.float32)
+    params = tree_map(lambda p: grid(p, 4, 2.0 ** -6), params)
+    grads = tree_map(lambda p: grid(p, 2, 2.0 ** -8), params)
+    norm = math.sqrt(sum(float((t.double() ** 2).sum())
+                         for t in tree_leaves(grads)))
+    period = math.lcm(cfg.resample_momentum_iterations,
+                      cfg.resample_prior_iterations)
+    post = period * max(1, math.ceil(cfg.burnin_epochs / period))
+    clip = opt_state["0"]
+    window = clip["buffer"].numel()
+
+    def full(threshold):
+        buf = norm * (0.5 + 0.01 * torch.rand(window, generator=g))
+        return {"buffer": buf.to(torch.float32).to(dev),
+                "count": torch.tensor(window + 7, dtype=torch.int32,
+                                      device=dev),
+                "max_grad": torch.tensor(threshold * norm,
+                                         dtype=torch.float32, device=dev)}
+    worst = 0.0
+    for count, clip_state in ((0, clip), (1, full(0.5)), (post, full(2.0)),
+                              (post + 1, clip)):
+        sghmc_state = dict(opt_state["1"], count=torch.tensor(
+            count, dtype=torch.int32, device=dev))
+        state = {"0": clip_state, "1": sghmc_state}
+        out = []
+        for tx, d in zip(txs, (dev, cpu)):
+            if d == cpu:
+                host_q.queue = list(rec.cpu_queue(rec.drawn[-1:]).queue)
+            out.append(tx.update(to_device(grads, d), to_device(state, d),
+                                 to_device(params, d)))
+        (ua, na), (ub, nb) = out
+        reads = [(_rel(x, y), f"update {'/'.join(p)}")
+                 for (p, x), (_p, y) in zip(_leaf_items(ua), _leaf_items(ub))]
+        for key in ("tau", "g", "v_hat", "momentum", "weight_decay"):
+            reads += [(_rel(x, y), f"{key} {'/'.join(p)}")
+                      for (p, x), (_p, y) in zip(_leaf_items(na["1"][key]),
+                                                 _leaf_items(nb["1"][key]))]
+        reads += [(_rel(na["0"][k], nb["0"][k]), f"clip {k}")
+                  for k in ("buffer", "max_grad")]
+        r, at = max(reads)
+        worst = max(worst, r)
+        counts = [(int(na[i]["count"]), int(nb[i]["count"])) for i in "01"]
+        print(f"{what}: the clip and SGHMC alone at count {count} (clip "
+              f"count {int(clip_state['count'])}, "
+              f"{float(clip_state['max_grad']) / norm:.3g} x the norm), card "
+              f"vs CPU: worst {r:.3g} ({at}) of {len(reads)} tensors; counts "
+              f"{counts}")
+        check(r <= SGHMC_TX_RTOL, f"{what}, count {count}: {at} differs")
+        check(all(x == y for x, y in counts), f"{what}: counts differ")
+    return worst
+
+
+def _sghmc_trainer(cfg, draws, n_batches, n_points, dev, noise=None,
+                   masks=None):
+    tx, _ = build_optimizer(cfg, n_batches, sghmc_draws=draws)
+    return Trainer(build_model(cfg), cfg, tx, "float", n_batches, n_points,
+                   noise if noise is not None else QueueNoise([]), dev,
+                   masks=masks)
+
+
+def _sghmc_card_vs_cpu(cfg, variables, batches, n_points, seed, dev,
+                      what):
+    """SGHMC steps at the small batch on the card and on the CPU with the
+    same draws: each card step against a CPU step from the card's state
+    before it (the loss, _sghmc_step_check) and the clip and SGHMC alone
+    on that state (_sghmc_transform_check), and the chains of
+    SGHMC_CHAIN steps, each side from its own state, by their losses
+    (the RMS displacement of their params from the init printed)."""
+    cpu = torch.device("cpu")
+    rec = RecordingDraws(torch.Generator(device=dev).manual_seed(seed + 93))
+    card = _sghmc_trainer(cfg, rec, len(batches), n_points, dev)
+    host_q = QueueDraws([])
+    host = _sghmc_trainer(cfg, host_q, len(batches), n_points, cpu)
+    s_card = card.init_state(variables)
+    s_host = host.init_state(to_device(variables, cpu))
+    start = _flat_modules(s_card.params)
+    worst_loss = 0.0
+    for i, (x, y) in enumerate(batches):
+        nxt, _m, l_card = card.train_step(
+            s_card, metrics_init(cfg.task, dev), x, y, card.noise)
+        step = rec.cpu_queue(rec.drawn[-1:]).queue
+        host_q.queue = list(step)
+        common, _m, l_common = host.train_step(
+            _state_to(s_card, cpu), metrics_init(cfg.task, cpu), x.cpu(),
+            y.cpu(), host.noise)
+        host_q.queue = list(step)
+        s_host, _m, l_host = host.train_step(
+            s_host, metrics_init(cfg.task, cpu), x.cpu(), y.cpu(),
+            host.noise)
+        d = abs(float(l_card["obj"]) - float(l_common["obj"])) / abs(
+            float(l_common["obj"]))
+        print(f"{what} step {i}, card vs CPU from the card's state: loss "
+              f"{float(l_card['obj']):.6f} vs {float(l_common['obj']):.6f}, "
+              f"rel diff {d:.3g}")
+        check(d <= 1e-5, f"{what} step {i}: card and CPU losses differ")
+        _sghmc_step_check(s_card, nxt, common,
+                          f"{what} step {i} card vs CPU")
+        _sghmc_transform_check(cfg, s_card.params, s_card.opt_state,
+                               seed + 90 + i, dev, f"{what} step {i}")
+        worst_loss = max(worst_loss, abs(float(l_card["obj"]) - float(
+            l_host["obj"])) / abs(float(l_host["obj"])))
+        s_card = nxt
+
+    def rms(state):
+        f = _flat_modules(state.params)
+        return math.sqrt(sum(float(((f[m] - start[m]) ** 2).sum())
+                             for m in f) / sum(v.numel() for v in f.values()))
+    print(f"{what}, {len(batches)} chained steps card vs CPU: losses max "
+          f"rel diff {worst_loss:.3g} (limit {SGHMC_CHAIN_RTOL:g}); params' "
+          f"RMS displacement {rms(s_card):.6g} vs {rms(s_host):.6g}")
+    check(worst_loss <= SGHMC_CHAIN_RTOL,
+          f"{what}: card and CPU chains part")
+
+
+def _gamma_check(params, seed, dev, n=100_000):
+    """torch._standard_gamma with a generator on the card at the smallest
+    and the largest alpha = alpha0 + size/2 of the params' tensors: the
+    mean and variance of n draws against alpha (5 standard errors; the
+    sample variance's is sqrt((2 alpha^2 + 6 alpha) / n))."""
+    g = torch.Generator(device=dev).manual_seed(seed + 94)
+    sizes = [t.numel() for t in tree_leaves(params)]
+    out = []
+    for alpha in (10.0 + min(sizes) / 2.0, 10.0 + max(sizes) / 2.0):
+        z = torch._standard_gamma(torch.full((n,), alpha, device=dev),
+                                  generator=g).double()
+        mean, var = float(z.mean()), float(z.var())
+        se_m = math.sqrt(alpha / n)
+        se_v = math.sqrt((2 * alpha ** 2 + 6 * alpha) / n)
+        print(f"Gamma({alpha:g}) on the card, {n} draws: mean {mean:.6g} "
+              f"({(mean - alpha) / se_m:+.2f} se), variance {var:.6g} "
+              f"({(var - alpha) / se_v:+.2f} se)")
+        check(abs(mean - alpha) <= 5 * se_m and abs(var - alpha) <= 5 * se_v,
+              f"Gamma({alpha:g}) moments")
+        out.append((alpha, mean, var))
+    return out
+
+
+def phase_sghmc(seed, dev):
+    """The SGHMC ResNet-18 from start to finish: flows.fit of the sgld
+    cifar preset (cut as above) writing its 7 posterior snapshots;
+    flows.qat of each snapshot (B=1024) and convert; load_trained of the
+    7 converted members and `evaluate` at B=256 (140 conv launches a
+    batch, shared weights); the float snapshots' float MC evaluation as
+    an ensemble; the card against the CPU (SGHMC_CHAINS chains of steps,
+    from the inits of the seeds from `seed` on); the Gamma draws. Returns
+    (counts, {what: ms})."""
+    import tempfile
+    from qbn_tpu_torch.flows import qat as flows_qat
+    counts = {"dense": 0, "draw": 0, "conv": 0,
+              "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0},
+              "conv_shared": 0}
+    ms = {}
+    rng = np.random.default_rng(seed + 91)
+    batches = _cifar_batches(rng, SGHMC_STEPS, RESNET_BATCH, dev)
+    cfg = preset("sgld", "cifar", epochs=SGHMC_EPOCHS,
+                 burnin_epochs=SGHMC_BURNIN, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        fdir, qdir = os.path.join(tmp, "float"), os.path.join(tmp, "q")
+        t0 = time.perf_counter()
+        model, trainer, state = fit(cfg, batches, device=dev,
+                                    dataset_size=CIFAR_TRAIN, save_dir=fdir)
+        snaps = [os.path.basename(p) for p in list_snapshots(fdir)]
+        print(f"sghmc fit: {SGHMC_EPOCHS * SGHMC_STEPS} steps of B="
+              f"{RESNET_BATCH} + {len(snaps)} snapshots in "
+              f"{time.perf_counter() - t0:.2f} s: {snaps}; last epoch "
+              f"{json.dumps(trainer.history[-1]['train'])}", flush=True)
+        check(snaps == [f"weights_{e}.msgpack" for e in range(2, 15, 2)],
+              f"sghmc snapshots {snaps}")
+        for row in trainer.history:
+            check(all(math.isfinite(v) for v in row["train"].values()),
+                  f"sghmc epoch {row['epoch']}: non-finite {row['train']}")
+        ms["sghmc step"], state = _steady_step_ms(trainer, state, batches * 5)
+        print(f"sghmc: steady {ms['sghmc step']:.3f} ms per step (CUDA "
+              f"events over {len(batches) * 5} steps)")
+        _profile_step(trainer, state, batches[0], "profiled sghmc step")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        qcfg = preset("sgld", "cifar", "qat", epochs=1, seed=seed)
+        qb = _cifar_batches(rng, SGHMC_QAT_STEPS, qcfg.batch_size, dev)
+        t0 = time.perf_counter()
+        _m, qtrainer, members = flows_qat(qcfg, fdir, qb, device=dev,
+                                          save_dir=qdir)
+        print(f"sghmc qat: {MEMBERS} members x {SGHMC_QAT_STEPS} steps of "
+              f"B={qcfg.batch_size} + convert + save in "
+              f"{time.perf_counter() - t0:.2f} s; last member "
+              f"{json.dumps(qtrainer.history[-1]['train'])}", flush=True)
+        check(sorted(os.listdir(qdir)) == sorted(
+            ["config.json", "scalars.jsonl"] + snaps), "sghmc qat files")
+        ms["sghmc qat step"], _s = _steady_step_ms(
+            qtrainer, _s_of(qtrainer, members, "sgld"), qb)
+        print(f"sghmc qat: steady {ms['sghmc qat step']:.3f} ms per step at "
+              f"B={qcfg.batch_size}")
+        _profile_step(qtrainer, _s, qb[0], "profiled sghmc qat step")
+        del qtrainer, _s, members
+        torch.cuda.empty_cache()
+        ms.update(_int_batches("sgld", qdir, seed, dev, counts))
+
+        # the float snapshots' float MC evaluation, an ensemble of 7
+        fcfg, fmodel, fstate = load_trained(fdir, device=dev)
+        data = _cifar_batches(rng, 2, BATCH, dev)
+        fm, probs, secs = evaluate(
+            fmodel, fstate, data, fcfg.samples,
+            torch.Generator(device=dev).manual_seed(seed + 95), dev,
+            mode="float")
+        for p in probs:
+            check(p.shape == (BATCH, 10) and bool(torch.isfinite(p).all())
+                  and bool(((p.sum(-1) - 1).abs() < 1e-4).all()),
+                  "sghmc float ensemble: probabilities")
+        ms["float sgld batch"] = 1e3 * secs[-1]
+        print(f"sghmc float MC evaluation of the {fcfg.samples} float "
+              f"snapshots: B={BATCH}, {1e3 * secs[-1]:.1f} ms for the second "
+              f"batch (first {1e3 * secs[0]:.1f}), metrics "
+              f"{json.dumps({k: round(float(v), 6) for k, v in cls_metrics_compute(fm).items()})}",
+              flush=True)
+        del fstate, fmodel
+
+    del model
+    for s in range(seed, seed + SGHMC_CHAINS):
+        variables = _sghmc_chain(s, dev, "resnet sghmc" + (
+            "" if s == seed else f" seed {s}"))
+        if s == seed:
+            _gamma_check(variables["params"], seed, dev)
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def _sghmc_chain(seed, dev, what):
+    """The card against the CPU (_sghmc_card_vs_cpu) over SGHMC_CHAIN steps
+    at B=RESNET_SMALL of the sgld cifar preset, from the init and the
+    first batches that phase_sghmc's run of `seed` trains from. Returns
+    the init's variables."""
+    cfg = preset("sgld", "cifar", epochs=SGHMC_EPOCHS,
+                 burnin_epochs=SGHMC_BURNIN, seed=seed)
+    batches = _cifar_batches(np.random.default_rng(seed + 91), SGHMC_STEPS,
+                             RESNET_BATCH, dev)
+    variables = init_variables(build_model(cfg), torch.Generator()
+                               .manual_seed(seed), cfg.input_size, dev)
+    small = [tuple(t[RESNET_SMALL * (i // 2):RESNET_SMALL * (i // 2 + 1)]
+                   for t in batches[i % 2]) for i in range(SGHMC_CHAIN)]
+    _sghmc_card_vs_cpu(cfg, variables, small, CIFAR_TRAIN, seed, dev, what)
+    return variables
+
+
+def _leaf_items(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_items(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _unleaf(flat):
+    out = {}
+    for path, v in flat.items():
+        cursor = out
+        for k in path[:-1]:
+            cursor = cursor.setdefault(k, {})
+        cursor[path[-1]] = v
+    return out
+
+
+# The regression path: qbn_tpu's regression presets at full width (hidden
+# 100-100-100; B=1000, sgld 128), tpu_fused, on two UCI tables' shapes
+# made from the seed as qbn_tpu/data/uci.py makes its synthetic stand-ins
+# (x ~ N(0, 1), y = x w + 0.3 N(0, 1)): fold 0 of 10 (contiguous, as
+# sklearn's KFold), standardised by its train rows, floor(0.2 x) of them
+# held out for validation at random (qbn_tpu's loaders). Cut: 300 epochs
+# to REG_EPOCHS, the QAT's 10 to REG_QAT_EPOCHS; for sgld 300 epochs to 7,
+# its burn-in from 200 epochs to 3 and its samples from 7 to 2, so that
+# its snapshots land at epochs 4 and 6. SGHMC needs its burn-in: with 1
+# epoch of it on power's shape qbn_tpu's own SGHMC (and the port's) runs
+# to NaN from epoch 1 on the same data; with 3 it does not.
+REG_TABLES = {"housing": (506, 13), "power": (9568, 4)}
+REG_METHODS = ("pointwise", "mcdropout", "bbb", "sgld")
+REG_EPOCHS, REG_QAT_EPOCHS = 3, 2
+REG_SGLD = dict(epochs=7, burnin_epochs=3, samples=2)
+REG_SMALL, REG_TEST_BATCH = 8, 1000
+
+
+def regression_split(name, seed):
+    """{'train', 'valid', 'test': (x, y) float32, 'n': the train fold's
+    rows before the valid split (qbn_tpu's dataset_size)}."""
+    n, d = REG_TABLES[name]
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d)
+    w = rng.randn(d, 1)
+    y = x @ w + 0.3 * rng.randn(n, 1)
+    n_test = n // 10 + (1 if n % 10 else 0)
+    xt, yt, xe, ye = x[n_test:], y[n_test:], x[:n_test], y[:n_test]
+    xm, xs, ym, ys = xt.mean(0), xt.std(0), yt.mean(0), yt.std(0)
+
+    def f32(a):
+        return a.astype(np.float32)
+    xt, xe = f32((xt - xm) / xs), f32((xe - xm) / xs)
+    yt, ye = f32((yt - ym) / ys), f32((ye - ym) / ys)
+    idx = rng.permutation(len(xt))
+    n_valid = int(np.floor(0.2 * len(xt)))
+    v, t = idx[:n_valid], idx[n_valid:]
+    return {"train": (xt[t], yt[t]), "valid": (xt[v], yt[v]),
+            "test": (xe, ye), "n": len(xt)}
+
+
+def _batches_of(x, y, b, dev):
+    return [(torch.as_tensor(x[i:i + b], device=dev),
+             torch.as_tensor(y[i:i + b], device=dev))
+            for i in range(0, len(x), b)]
+
+
+def _draw_at_model(state, samples, seed, dev, what):
+    """The draw kernel at the shapes that a converted model's evaluation
+    gives it: its stochastic layers packed at the evaluation's S, held
+    bitwise against the plain version with explicit noise (plain_draw)
+    and seeded (plain_seeded, the same seed and offset). Returns the
+    largest code difference (0, or raises)."""
+    layers = plan_layers(state, presample_plan(state))
+    pack = sw.pack_layers(layers, samples)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = [torch.randn((samples,) + tuple(w.shape), generator=g,
+                         device=dev) for (w, *_r) in layers]
+    err = _max_code_diff(sw.draw_layers(pack, noise=noise),
+                         plain_draw(layers, noise), f"{what}, explicit noise")
+    sd, off = sw.seed_offset(torch.Generator().manual_seed(seed + 1))
+    got = sw.draw_layers(pack, generator=torch.Generator().manual_seed(
+        seed + 1))
+    err = max(err, _max_code_diff(
+        got, plain_seeded(layers, samples, sd, off, dev), f"{what}, seeded"))
+    sizes = [w.numel() for (w, *_r) in layers]
+    print(f"{what}: the draw at S={samples} on {len(layers)} layers of "
+          f"{sizes} codes (n % 16 = {[n % 16 for n in sizes]}), "
+          f"{pack.tiles} tiles: kernel == plain, bitwise, with explicit "
+          "noise and seeded")
+    return err
+
+
+def _reg_card_vs_cpu(cfg, variables, batch, seed, dev, what):
+    """One training step at B=REG_SMALL from the same init on the card
+    (recording its noise, masks and SGHMC draws) and on the CPU (given
+    them): the loss within 1e-5, the params as the LeNet phase's (Adam's
+    lr * sign(g) where a gradient is at rounding level), SGHMC's step as
+    the ResNet's (_sghmc_step_check, _sghmc_transform_check)."""
+    cpu = torch.device("cpu")
+    g = torch.Generator(device=dev).manual_seed(seed + 96)
+    rec, drawn_masks = RecordingNoise(g), []
+    bern = BernoulliMasks(g, 1)
+
+    def masks_card(shape, keep, device):
+        m = bern(shape, keep, device)
+        drawn_masks.append(m)
+        return m
+    draws = RecordingDraws(torch.Generator(device=dev).manual_seed(seed + 97))
+    x, y = batch
+    card = _sghmc_trainer(cfg, draws, 2, 2 * len(y), dev, rec, masks_card)
+    s0 = card.init_state(variables)
+    s1, _m, lg = card.train_step(s0, metrics_init(cfg.task, dev), x, y,
+                                 rec, masks_card)
+    qm = QueueMasks([m.cpu() for m in drawn_masks])
+    host = _sghmc_trainer(cfg, draws.cpu_queue(draws.drawn), 2, 2 * len(y),
+                          cpu, QueueNoise([e.cpu() for e in rec.drawn]), qm)
+    h1, _m, lc = host.train_step(host.init_state(to_device(variables, cpu)),
+                                 metrics_init(cfg.task, cpu), x.cpu(),
+                                 y.cpu(), host.noise, qm)
+    d = abs(float(lg["obj"]) - float(lc["obj"])) / abs(float(lc["obj"]))
+    print(f"{what} card vs CPU at B={len(y)}: loss {float(lg['obj']):.6f} "
+          f"vs {float(lc['obj']):.6f}, rel diff {d:.3g}")
+    check(d <= 1e-5, f"{what}: card and CPU losses differ")
+    if cfg.optimizer == "sghmc":
+        _sghmc_step_check(s0, s1, h1, f"{what} card vs CPU")
+        _sghmc_transform_check(cfg, s1.params, s1.opt_state, seed + 95,
+                               dev, what)
+    else:
+        _check_params(_param_diffs(s1, h1), f"{what} card vs CPU", 1,
+                      cfg.learning_rate)
+
+
+def _reg_kernel_vs_plain(cfg, variables, batches, seed, dev, what):
+    """The BBB MLP's kernel path (its five dense layers through the dense
+    kernel) against its plain path, 3 steps chained from the same init
+    with the same noise: losses within 1e-5, params as the LeNet
+    phase's."""
+    g = torch.Generator(device=dev).manual_seed(seed + 98)
+    runs = []
+    noise = []
+    for fused in (True, False):
+        c = cfg.replace(tpu_fused=fused)
+        tr = _sghmc_trainer(c, None, len(batches), len(batches) * len(
+            batches[0][1]), dev)
+        st = tr.init_state(variables)
+        losses = []
+        for i, (x, y) in enumerate(batches):
+            if fused:
+                src = RecordingNoise(g)
+            else:
+                src = QueueNoise(list(noise[i]))
+            st, _m, logs = tr.train_step(st, metrics_init(c.task, dev), x, y,
+                                         src)
+            if fused:
+                noise.append(src.drawn)
+            losses.append((float(logs["obj"]), float(logs["main_obj"])))
+        runs.append((losses, st))
+    (lk, sk), (lp, sp_) = runs
+    dl = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(lk, lp))
+    print(f"{what} kernel path vs plain path, {len(batches)} steps: losses "
+          f"{[round(a[0], 6) for a in lk]} vs {[round(b[0], 6) for b in lp]},"
+          f" max rel diff {dl:.3g}")
+    check(dl <= 1e-5, f"{what}: kernel and plain losses differ")
+    _check_params(_param_diffs(sk, sp_), f"{what} kernel path vs plain path",
+                  len(batches), cfg.learning_rate)
+
+
+def phase_regression(seed, dev):
+    """The regression MLP of the four methods on housing's and power's
+    shapes: per method flows.fit (the dense kernel 5 times a BBB step),
+    ms per steady step, flows.qat and convert (per snapshot for sgld),
+    saved under qbn_tpu's fold names, load_trained and the INT `evaluate`
+    on the test rows (the draw once a BBB batch, and held bitwise against
+    its plain version at the converted MLP's layers), the float
+    `evaluate` of the float run; on housing, one step card against CPU at
+    B=8 per method and the BBB kernel path against the plain path. Returns
+    (counts, {what: ms}, {(table, method): results})."""
+    import tempfile
+    from collections import Counter
+    from qbn_tpu_torch.flows import qat as flows_qat
+    counts = {"dense": 0, "dense_by_kn": Counter(), "draw": 0,
+              "draw_err": 0}
+    ms, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for t_i, table in enumerate(REG_TABLES):
+            split = regression_split(table, seed + 100 + t_i)
+            info = f"_{table}_0"
+            test = _batches_of(*split["test"], REG_TEST_BATCH, dev)
+            for method in REG_METHODS:
+                over = {"epochs": REG_EPOCHS,
+                        **(REG_SGLD if method == "sgld" else {})}
+                cfg = preset(method, "regression", tpu_fused=True,
+                             seed=seed, **over)
+                train = _batches_of(*split["train"], cfg.batch_size, dev)
+                valid = _batches_of(*split["valid"], cfg.batch_size, dev)
+                fdir = os.path.join(tmp, f"{table}_{method}_float")
+                qdir = os.path.join(tmp, f"{table}_{method}_q")
+                per_step = 5 if method == "bbb" else 0
+                bd.launches = 0
+                bd.launches_by_kn.clear()
+                t0 = time.perf_counter()
+                model, trainer, state = fit(
+                    cfg, train, valid, device=dev, dataset_size=split["n"],
+                    save_dir=fdir, special_info=info)
+                n_fit = bd.launches
+                check(n_fit == per_step * cfg.epochs * len(train),
+                      f"{table} {method}: dense kernel launches {n_fit} in "
+                      f"{cfg.epochs * len(train)} steps")
+                hist = trainer.history[-1]
+                check(all(math.isfinite(v) for r in ("train", "valid")
+                          for v in hist[r].values()),
+                      f"{table} {method}: non-finite metrics {hist}")
+                step_ms, state = _steady_step_ms(trainer, state, train)
+                ms[f"{table} {method} step"] = step_ms
+                print(f"{table} {method} fit: {cfg.epochs} epochs of "
+                      f"{len(train)} steps (B={cfg.batch_size}, last "
+                      f"{len(train[-1][1])}) in {time.perf_counter() - t0:.2f}"
+                      f" s, dense kernel launches {n_fit}; steady "
+                      f"{step_ms:.3f} ms per step; last epoch "
+                      f"{json.dumps(hist)}", flush=True)
+                if table == "housing" and method in ("bbb", "sgld"):
+                    _profile_step(trainer, state, train[0],
+                                  f"profiled {table} {method} step")
+                del trainer, state
+                qover = {"samples": REG_SGLD["samples"]} \
+                    if method == "sgld" else {}
+                qcfg = preset(method, "regression", "qat", tpu_fused=True,
+                              epochs=REG_QAT_EPOCHS, seed=seed, **qover)
+                t0 = time.perf_counter()
+                before = bd.launches
+                _m, qtr, _conv = flows_qat(
+                    qcfg, fdir, train, valid, device=dev,
+                    dataset_size=split["n"], save_dir=qdir,
+                    special_info=info)
+                n_qat = bd.launches - before
+                members = qcfg.samples if method == "sgld" else 1
+                check(n_qat == per_step * REG_QAT_EPOCHS * len(train)
+                      * members, f"{table} {method} qat: dense kernel "
+                      f"launches {n_qat}")
+                q_ms, _s = _steady_step_ms(qtr, _s_of(qtr, _conv, method),
+                                           train)
+                ms[f"{table} {method} qat step"] = q_ms
+                print(f"{table} {method} qat + convert: {members} x "
+                      f"{REG_QAT_EPOCHS} epochs in "
+                      f"{time.perf_counter() - t0:.2f} s, dense kernel "
+                      f"launches {n_qat}; steady {q_ms:.3f} ms per QAT step",
+                      flush=True)
+                counts["dense"] += bd.launches
+                counts["dense_by_kn"].update(bd.launches_by_kn)
+                del qtr, _s, _conv
+                sw.launches = 0
+                out, states = {}, {}
+                for mode, d in (("int", qdir), ("float", fdir)):
+                    c, m, st = load_trained(d, device=dev,
+                                            special_info=info)
+                    states[mode] = (c, st)
+                    mstate, _o, secs = evaluate(
+                        m, st, test, c.samples,
+                        torch.Generator(device=dev).manual_seed(seed + 99),
+                        dev, mode=mode)
+                    res = {k: float(v) for k, v in metrics_compute(
+                        "regression", mstate).items()}
+                    check(all(math.isfinite(v) for v in res.values()),
+                          f"{table} {method} {mode} evaluate: {res}")
+                    out[mode] = {"rmse": res["rmse"], "nll": res["nll"],
+                                 "ms": 1e3 * secs[-1]}
+                draws = sw.launches
+                check(draws == (len(test) if method == "bbb" else 0),
+                      f"{table} {method}: {draws} draw launches")
+                counts["draw"] += draws
+                if method == "bbb":
+                    c, st = states["int"]
+                    err = _draw_at_model(st, c.samples, seed + 102 + t_i,
+                                         dev, f"{table} bbb INT MLP")
+                    counts["draw_err"] = max(counts["draw_err"], err)
+                del states
+                results[(table, method)] = out
+                print(f"{table} {method} evaluate on {len(split['test'][0])}"
+                      f" test rows ({c.samples} samples): INT rmse "
+                      f"{out['int']['rmse']:.4f} nll {out['int']['nll']:.4f},"
+                      f" float rmse {out['float']['rmse']:.4f} nll "
+                      f"{out['float']['nll']:.4f}; draw launches {draws}",
+                      flush=True)
+                if table == "housing":
+                    variables = init_variables(
+                        model, torch.Generator().manual_seed(seed),
+                        (split["train"][0].shape[1],), dev)
+                    small = (train[0][0][:REG_SMALL],
+                             train[0][1][:REG_SMALL])
+                    _reg_card_vs_cpu(cfg, variables, small, seed, dev,
+                                     f"{table} {method}")
+                    if method == "bbb":
+                        _reg_kernel_vs_plain(cfg, variables,
+                                             [train[0]] * 3, seed, dev,
+                                             f"{table} bbb")
+                del model
+    return counts, ms, results
+
+
+def _s_of(trainer, converted, method):
+    """A training state of the QAT trainer from the converted variables
+    (the last member's, for sgld)."""
+    if method == "sgld":
+        converted = _unleaf({k: v[-1] for k, v in _leaf_items(converted)})
+    return trainer.init_state(converted)
 
 
 def main(argv=None) -> int:
@@ -2219,12 +3002,19 @@ def main(argv=None) -> int:
         r_launches, r_ms = phase_resnet_train(args.seed, dev)
     with Phase("qat"):
         q_counts, q_ms = phase_qat(args.seed, dev)
+    with Phase("sghmc"):
+        s_counts, s_ms = phase_sghmc(args.seed, dev)
+    with Phase("regression"):
+        g_counts, g_ms, g_results = phase_regression(args.seed, dev)
     with Phase("times"):
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
         d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
         head = phase_dense_times(args.seed, DENSE_SHAPES[2],
                                  seed_mode=False)
+        mlp = {name: phase_dense_times(args.seed, shape, seed_mode=False)
+               for name, shape in (("mlp_in", DENSE_SHAPES[4]),
+                                   ("mlp_head", DENSE_SHAPES[5]))}
         conv_times = phase_conv_times(args.seed)
         shared_times, shared_err = phase_shared_conv_times(args.seed)
     print("INT paths, steady ms per batch: " + ", ".join(
@@ -2233,25 +3023,38 @@ def main(argv=None) -> int:
         f"{k} {v:.3f}" for k, v in r_ms.items()))
     print("QAT and INT after convert, ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in q_ms.items()))
+    print("SGHMC ResNet-18, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in s_ms.items()))
+    print("Regression MLP, ms per steady step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in g_ms.items()))
+    print("Regression MLP, evaluate on the test rows: " + "; ".join(
+        f"{t} {m} INT rmse {r['int']['rmse']:.4f} nll {r['int']['nll']:.4f}"
+        f", float rmse {r['float']['rmse']:.4f} nll {r['float']['nll']:.4f}"
+        for (t, m), r in g_results.items()))
     resnet_dense = sum(r_launches.values()) + q_counts["dense"]
+    by_kn = g_counts["dense_by_kn"]
+    mlp_launches = {"mlp_in": by_kn[(13, 100)], "mlp_head": by_kn[(100, 1)]}
     print(f"launches on the paths: draw {launches} (main) + "
-          f"{q_counts['draw']} (INT after QAT); dense {dense_launches} "
+          f"{q_counts['draw']} (INT after QAT) + {g_counts['draw']} "
+          f"(regression INT); dense {dense_launches} "
           f"(LeNet) + {sum(r_launches.values())} (ResNet fit) + "
-          f"{q_counts['dense']} (QAT); conv {conv_launches} (main) + "
+          f"{q_counts['dense']} (QAT) + {g_counts['dense']} (regression, "
+          f"by (K, N) {dict(by_kn)}); conv {conv_launches} (main) + "
           f"{q_counts['conv']} (BBB INT after QAT), shared weights "
           f"{sum(m_launches.values())} (methods) + {q_counts['conv_shared']}"
-          " (INT after QAT)")
+          f" (INT after QAT) + {s_counts['conv_shared']} (SGHMC ensemble)")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
         "name": "sample_weights", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + q_counts["draw"],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": launches + q_counts["draw"] + g_counts["draw"],
+        "max_abs_err": max(max_err, g_counts["draw_err"]), "ms": ms,
+        "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
         "name": "bbb_dense", "route": "cuda", "source": DENSE_SOURCE,
         "replaces": DENSE_REPLACES,
-        "launches": dense_launches + resnet_dense,
+        "launches": dense_launches + resnet_dense + g_counts["dense"],
         "max_abs_err": dense_err, "ms": d_ms, "plain_ms": d_plain,
         "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib}, {
         # the same kernel at the ResNet-18's head, on the ResNet paths
@@ -2259,6 +3062,15 @@ def main(argv=None) -> int:
         "replaces": DENSE_REPLACES, "launches": resnet_dense,
         "max_abs_err": dense_err, "ms": head[0], "plain_ms": head[1],
         "bound_ms": head[3], "bound_by": head[4], "library_ms": head[2]}]
+        + [{
+        # the same kernel at the regression MLP's dense_0 (housing, K=13)
+        # and its heads (N=1), on the regression path
+        "name": f"bbb_dense/{key}", "route": "cuda", "source": DENSE_SOURCE,
+        "replaces": DENSE_REPLACES, "launches": mlp_launches[key],
+        "max_abs_err": dense_err, "ms": mlp[key][0],
+        "plain_ms": mlp[key][1], "bound_ms": mlp[key][3],
+        "bound_by": mlp[key][4], "library_ms": mlp[key][2]}
+        for key in ("mlp_in", "mlp_head")]
         + [{
         # the conv kernel per batch, then each body: the halo and pixel
         # bodies on the main path, the im2col body (no launch there) timed
@@ -2278,7 +3090,8 @@ def main(argv=None) -> int:
         # paths: their launches; its time per MC-Dropout batch
         "name": "int_conv/shared_w", "route": "cuda",
         "source": CONV_SOURCE, "replaces": CONV_REPLACES,
-        "launches": sum(m_launches.values()) + q_counts["conv_shared"],
+        "launches": (sum(m_launches.values()) + q_counts["conv_shared"]
+                     + s_counts["conv_shared"]),
         "max_abs_err": max(m_err, shared_err), "ms": shared_times[0],
         "plain_ms": shared_times[1], "bound_ms": shared_times[2],
         "bound_by": shared_times[3], "library_ms": None}]}))

@@ -9,12 +9,15 @@ What is ported so far:
 - INT8 Monte-Carlo evaluation of converted models of the four methods
   (`evaluation.mc.evaluate`): the bulk posterior weight draw kernel,
   `csrc/sample_weights.cu`, and the int8 conv kernel, `csrc/int_conv.cu`;
-- float training of the MNIST LeNet and of the CIFAR ResNet-18 with batch
-  norm (`flows.fit`), whose Bayes-by-backprop dense layers run the fused
-  local-reparametrisation kernel, `csrc/bbb_dense.cu`, with
+- float Monte-Carlo evaluation of float models (`evaluate(mode="float")`);
+- float training of the four methods on the regression MLP, the MNIST
+  LeNet and the CIFAR ResNet-18 with batch norm (`flows.fit`: Adam, or
+  the adaptive clip and SGHMC, with qbn_tpu's checkpoint policy and
+  posterior snapshots), whose Bayes-by-backprop dense layers run the
+  fused local-reparametrisation kernel, `csrc/bbb_dense.cu`, with
   `tpu_fused=True`;
 - QAT and convert to the INT state that the evaluation reads
-  (`flows.qat`).
+  (`flows.qat`, snapshot by snapshot for SGHMC).
 The kernels are built with nvcc at first use (`ops/_build.py`). Entry
 points run on the card (`device="cuda"`) unless the caller asks for the
 CPU, where every kernel's plain PyTorch version runs instead.

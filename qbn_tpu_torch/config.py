@@ -1,9 +1,10 @@
 """Experiment configuration (port of qbn_tpu/config.py and the QuantConfig
 of qbn_tpu/models/layers.py).
 
-Only the fields that the ported paths read are kept (INT evaluation of a
-converted checkpoint, float and QAT training); `Config.from_json` ignores
-the other keys of an experiment's config.json, and `save` writes the
+Only the fields that the ported paths read are kept (INT and float
+evaluation, float training with Adam or SGHMC, QAT, the checkpoint
+policy); `Config.from_json` ignores the other keys of an experiment's
+config.json (the data and mesh fields), and `to_json` writes the
 port's fields. `tpu_fused` keeps
 qbn_tpu's name so that a config.json carries across; in the port it routes
 the BBB local-reparametrisation dense layers through the hand-written CUDA
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 from qbn_tpu_torch.quant.bounds import INT_BOUNDS, UINT_BOUNDS
 
@@ -33,13 +34,24 @@ class Config:
     epochs: int = 300
     batch_size: int = 256
     gamma: float = 0.01                   # KL weight
-    optimizer: str = "adam"               # adam | sgd
+    optimizer: str = "adam"               # adam | sgd | sghmc
     momentum: float = 0.9                 # for sgd
     lr_schedule: str = "cosine"           # cosine | constant
     # Bayesian knobs
     sigma_prior: float = 0.05             # BBB prior std
     p: float = 0.2                        # MC-Dropout rate
     samples: int = 20                     # MC samples / ensemble size
+    # SGHMC (training/sghmc.py)
+    burnin_epochs: int = 200
+    resample_momentum_iterations: int = 50
+    resample_prior_iterations: int = 25
+    gauss_sig: float = 0.1
+    base_c: float = 0.05
+    alpha0: float = 10.0
+    beta0: float = 10.0
+    # > 0: skip a posterior snapshot while the validation key metric is
+    # above the best so far + sghmc_guard (qbn_tpu's guard; 0 is off)
+    sghmc_guard: float = 0.0
     # data
     input_size: Tuple[int, ...] = (32, 32, 3)   # NHWC
     output_size: int = 10
@@ -50,6 +62,9 @@ class Config:
     weight_precision: int = 8             # bits, 2..8 (int)
     # bookkeeping
     seed: int = 1
+    save: Optional[str] = None            # the run directory (None: none)
+    save_last: bool = True                # else: save on best validation
+    report_freq: int = 50
     tpu_fused: bool = False               # BBB dense through the CUDA kernel
 
     @classmethod
@@ -61,7 +76,7 @@ class Config:
             kw["input_size"] = tuple(kw["input_size"])
         return cls(**kw)
 
-    def save(self, path: str) -> None:
+    def to_json(self, path: str) -> None:
         with open(path, "w") as fh:
             json.dump(dataclasses.asdict(self), fh, indent=2)
 

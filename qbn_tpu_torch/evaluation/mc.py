@@ -1,5 +1,6 @@
-"""Monte-Carlo predictive evaluation of converted models (port of the INT
-paths of qbn_tpu/evaluation/mc.py), for the four methods:
+"""Monte-Carlo predictive evaluation (port of qbn_tpu/evaluation/mc.py)
+of converted models (mode 'int', the default) and of float models (mode
+'float'), for the four methods. INT:
 
 * Bayes-by-backprop: per batch ONE launch of the posterior-draw kernel
   draws S int8 weight samples of every stochastic layer
@@ -13,6 +14,12 @@ paths of qbn_tpu/evaluation/mc.py), for the four methods:
 * SGHMC ensembles: one forward per member of a stacked state
   (evaluation/ensemble.py).
 
+Float (qbn_tpu's vmap over S keys, as S eval forwards): Bayes-by-backprop
+draws every layer's weights anew for each sample (w + softplus(std) *
+eps, `ops/stochastic.sample_weights`, from a noise source);
+MC-Dropout draws each site's mask anew for each sample; pointwise runs
+once; an ensemble runs one forward per member.
+
 `mc_predict` gives the outputs with the sample axis in front, `aggregate`
 the predictive (classification: the mean of the probabilities;
 regression: E[mu] and Var[mu] (ddof=1) + E[var]), folded into the metric
@@ -22,6 +29,7 @@ state. `evaluate` is the entry point and dispatches on the model's
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Iterable, List, Optional, Sequence
 
@@ -31,9 +39,9 @@ from qbn_tpu_torch.convert import to_device
 from qbn_tpu_torch.evaluation.ensemble import member, members
 from qbn_tpu_torch.models.architectures import ResNet
 from qbn_tpu_torch.ops.sample_weights import QPARAM_KEYS, draw_layers, pack_layers
-from qbn_tpu_torch.ops.stochastic import BernoulliMasks
+from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
 from qbn_tpu_torch.training import metrics as M
-from qbn_tpu_torch.utils import resolve_device
+from qbn_tpu_torch.utils import full_float32, resolve_device
 
 
 def presample_plan(state):
@@ -115,7 +123,8 @@ def _each(out, fn):
 def mc_predict(model, state, x, *, samples: int, plan=None,
                generator: Optional[torch.Generator] = None,
                presampled=None, up_to: Optional[str] = None,
-               ensemble: bool = False, masks=None):
+               ensemble: bool = False, masks=None, mode: str = "int",
+               noise=None):
     """All-samples predictive outputs with the sample axis in front:
     (S, B, classes), or for regression (mu, var), (S, B, out) each; or
     the codes at an `up_to` cut (a list of the members' with `ensemble`).
@@ -128,7 +137,17 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
       `masks` (a mask source, ops/stochastic.py) or drawn from
       `generator`;
     * pointwise: one forward, its output repeated S times (qbn_tpu runs
-      the same deterministic forward under S keys)."""
+      the same deterministic forward under S keys).
+
+    mode 'float' (a float state): `float_predict`, with `noise` (BBB)
+    and `masks` (MC-Dropout) as its sources, else drawn from
+    `generator`."""
+    if mode == "float":
+        return float_predict(model, state, x, samples=samples,
+                             generator=generator, ensemble=ensemble,
+                             noise=noise, masks=masks)
+    if mode != "int":
+        raise ValueError(f"unknown mode '{mode}'")
     if ensemble:
         if members(state) != samples:
             raise ValueError(f"an ensemble of {members(state)} members "
@@ -137,9 +156,7 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
                 for m in range(samples)]
         if up_to is not None:
             return outs
-        if isinstance(outs[0], tuple):
-            return tuple(torch.stack(o) for o in zip(*outs))
-        return torch.stack(outs)
+        return _stack(outs)
     if model.stochastic:
         if presampled is None:
             presampled = draw_sampled_weights(
@@ -158,6 +175,41 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
     return _each(out, lambda o: o.unsqueeze(0).expand(samples, *o.shape))
 
 
+def _stack(outs):
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def float_predict(model, state, x, *, samples: int,
+                  generator: Optional[torch.Generator] = None,
+                  ensemble: bool = False, noise=None, masks=None):
+    """Float MC predictive outputs with the sample axis in front: (S, B,
+    classes), or (mu, var), (S, B, out) each. One eval forward (train
+    False: batch norm's running statistics, one weight draw or mask per
+    layer) per sample: per member with `ensemble`; for a stochastic model
+    or one with dropout sites, S forwards drawing anew from `noise` and
+    `masks` (sources of ops/stochastic.py; by default from `generator`),
+    sample by sample; else one forward repeated S times."""
+    def forward(variables):
+        return model(x, variables, mode="float", train=False, noise=noise,
+                     masks=masks)
+
+    if noise is None:
+        noise = GeneratorNoise(generator)
+    if masks is None:
+        masks = BernoulliMasks(generator, 1)
+    if ensemble:
+        if members(state) != samples:
+            raise ValueError(f"an ensemble of {members(state)} members "
+                             f"evaluated as {samples} samples")
+        return _stack([forward(member(state, m)) for m in range(samples)])
+    if model.stochastic or model.dropout_p > 0:
+        return _stack([forward(state) for _ in range(samples)])
+    return _each(forward(state),
+                 lambda o: o.unsqueeze(0).expand(samples, *o.shape))
+
+
 def aggregate(outs, task: str = "classification"):
     """The predictive over the sample axis: classification, the mean of
     the probabilities; regression, (E[mu], Var[mu] (ddof=1, as torch.var)
@@ -173,9 +225,11 @@ def aggregate(outs, task: str = "classification"):
 
 
 def evaluate(model, state, batches: Iterable, samples: int,
-             generator: Optional[torch.Generator] = None, device="cuda"):
-    """INT8 MC evaluation over (x, y) batches of a model from
-    models/factory.py (its `method` and `task` choose the path): x (B, ...)
+             generator: Optional[torch.Generator] = None, device="cuda",
+             mode: str = "int"):
+    """MC evaluation over (x, y) batches of a model from models/factory.py
+    (its `method` and `task` choose the path), INT8 on a converted state
+    (mode 'int') or float32 on a float one (mode 'float'): x (B, ...)
     float32 inputs, y (B,) labels or regression targets (numpy or torch).
     `generator` draws the posterior weights (BBB) or the dropout masks
     (MC-Dropout; a generator on the card draws them there); an SGHMC
@@ -187,14 +241,16 @@ def evaluate(model, state, batches: Iterable, samples: int,
     device = resolve_device(device)
     state = to_device(state, device)
     method, regression = model.method, model.task == "regression"
-    plan = presample_plan(state) if method == "bbb" else None
-    masks = (BernoulliMasks(generator, samples) if method == "mcdropout"
-             else None)
+    plan = (presample_plan(state) if method == "bbb" and mode == "int"
+            else None)
+    masks = (BernoulliMasks(generator, samples if mode == "int" else 1)
+             if method == "mcdropout" else None)
     metric_state = (M.reg_metrics_init(device=device) if regression
                     else M.cls_metrics_init(device=device))
     outputs: List = []
     seconds: List[float] = []
-    with torch.no_grad():
+    with torch.no_grad(), (full_float32() if mode == "float"
+                           else contextlib.nullcontext()):
         for x, y in batches:
             t0 = time.perf_counter()
             x = torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -203,7 +259,7 @@ def evaluate(model, state, batches: Iterable, samples: int,
                                 else torch.int64)
             outs = mc_predict(model, state, x, samples=samples, plan=plan,
                               generator=generator, masks=masks,
-                              ensemble=method == "sgld")
+                              ensemble=method == "sgld", mode=mode)
             agg = aggregate(outs, model.task)
             if regression:
                 metric_state = M.reg_metrics_update(metric_state, *agg, y)

@@ -1,7 +1,7 @@
 """Architectures (port of qbn_tpu/models/architectures.py).
 
-* MLPNet, int mode: in -> 100 -> 100 -> 100 (ReLU) -> {mu, log_var}
-  heads; returns (mu, exp(log_var)).
+* MLPNet, float, qat, convert and int modes: in -> 100 -> 100 -> 100
+  (ReLU) -> {mu, log_var} heads; returns (mu, exp(log_var)).
 * LeNet, float, qat, convert and int modes: conv(20, 5x5, pad 2) ->
   maxpool 2 -> conv(50) -> maxpool 2 -> flatten -> fc 500 + ReLU -> fc
   out -> softmax (the convs have no ReLU or BN). Returns probabilities.
@@ -26,6 +26,7 @@ mask draws is qbn_tpu's.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -72,17 +73,19 @@ def _check_mode(mode):
 
 
 class MLPNet(_Sites):
-    """Regression MLP with mean and log-variance heads, int mode."""
+    """Regression MLP with mean and log-variance heads."""
 
     def __init__(self, output_size: int = 1,
                  hidden: Sequence[int] = (100, 100, 100),
                  stochastic: bool = False, dropout_p: float = 0.0,
+                 sigma_prior: float = 1.0,
                  quant: QuantConfig = QuantConfig()):
         super().__init__()
         self.hidden, self.dropout_p = tuple(hidden), dropout_p
         self.stochastic = stochastic
         self.input_quant = InputQuant(quant)
-        kw = dict(use_bias=True, stochastic=stochastic, quant=quant)
+        kw = dict(use_bias=True, stochastic=stochastic,
+                  sigma_prior=sigma_prior, std_init=-3.0, quant=quant)
         for i, h in enumerate(self.hidden):
             self.add_module(f"dense_{i}", DenseBlock(h, relu=True, **kw))
             if i != len(self.hidden) - 1:
@@ -92,23 +95,53 @@ class MLPNet(_Sites):
         self.mu = DenseBlock(output_size, **kw)
         self.log_var = DenseBlock(output_size, **kw)
 
-    def forward(self, x, variables, *, mode: str = "int", masks=None):
-        """x: (B, features) float32 (or (B, ...), flattened). Returns
-        (mu, var), each (B, out), or (S, B, out) under MC-Dropout."""
-        if mode != "int":
-            raise NotImplementedError(f"MLPNet mode '{mode}' is not ported")
+    def init(self, generator, input_size: Sequence[int]):
+        """The 'params' tree for (features,) inputs (or any shape, which
+        the forward flattens)."""
+        params, fan_in = {}, math.prod(input_size)
+        for i, h in enumerate(self.hidden):
+            params[f"dense_{i}"] = getattr(self, f"dense_{i}").init(
+                generator, fan_in)
+            fan_in = h
+        for name in ("mu", "log_var"):
+            params[name] = getattr(self, name).init(generator, fan_in)
+        return params
+
+    def forward(self, x, variables, *, train: bool = False,
+                mode: str = "float", noise=None, kl: dict = None,
+                masks=None, update_stats: bool = False,
+                mutable: dict = None, initializing: bool = False):
+        """x: (B, features) float32 (or (B, ...), flattened); noise, kl,
+        masks, mutable as for the LeNet. Returns (mu, var), each (B,
+        out), or (S, B, out) under MC-Dropout in int mode."""
+        _check_mode(mode)
+        kw = dict(train=train, mode=mode, noise=noise,
+                  update_stats=update_stats, initializing=initializing)
+        dkw = dict(mode=mode, train=train, update_stats=update_stats,
+                   initializing=initializing, mutable=mutable)
+        if mode == "int":
+            kw = dkw = dict(mode="int")
         x = x.reshape(x.shape[0], -1) if x.ndim > 2 else x
-        x = self.input_quant(x, scope(variables, "input_quant"), mode="int")
+        x = self.input_quant(x, scope(variables, "input_quant"), mode=mode,
+                             update_stats=update_stats,
+                             mutable=child(mutable, "input_quant"),
+                             initializing=initializing)
+
+        def dense(name, inp):
+            if mode == "int":
+                return getattr(self, name)(inp, scope(variables, name),
+                                           mode="int")
+            return getattr(self, name)(inp, scope(variables, name),
+                                       kl=_child(kl, name),
+                                       mutable=child(mutable, name), **kw)
+
         for i in range(len(self.hidden)):
-            x = getattr(self, f"dense_{i}")(x, scope(variables, f"dense_{i}"),
-                                            mode="int")
+            x = dense(f"dense_{i}", x)
             if i != len(self.hidden) - 1:
-                x = self._drop(f"drop_{i}", x, variables, masks)
-        mu_in = self._drop("drop_mu", x, variables, masks)
-        lv_in = self._drop("drop_log_var", x, variables, masks)
-        mu = self.mu(mu_in, scope(variables, "mu"), mode="int")
-        log_var = self.log_var(lv_in, scope(variables, "log_var"),
-                               mode="int")
+                x = self._drop(f"drop_{i}", x, variables, masks, **dkw)
+        mu_in = self._drop("drop_mu", x, variables, masks, **dkw)
+        lv_in = self._drop("drop_log_var", x, variables, masks, **dkw)
+        mu, log_var = dense("mu", mu_in), dense("log_var", lv_in)
         return dequant(mu), torch.exp(dequant(log_var))
 
 

@@ -17,6 +17,7 @@ seed and offset taken from the caller's torch.Generator (on the CPU,
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -28,9 +29,11 @@ from qbn_tpu_torch.ops import _build
 
 VAR_EPS = 1e-8
 
-# Kernel launches since the count was last set to 0; chip_smoke.py reads
-# it to show that the training path went through the kernel.
+# Kernel launches since the count was last set to 0, in all and by
+# (K, N); chip_smoke.py reads them to show that the training paths went
+# through the kernel.
 launches = 0
+launches_by_kn: "collections.Counter" = collections.Counter()
 
 
 def bbb_dense_plain(x, w, sp, noise):
@@ -129,4 +132,5 @@ def bbb_dense(x, w, sp, noise: Optional[torch.Tensor] = None,
     if err != 0:
         raise RuntimeError(f"qbn_bbb_dense launch failed: cudaError {err}")
     launches += 1
+    launches_by_kn[(k, n)] += 1
     return out

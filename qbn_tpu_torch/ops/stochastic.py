@@ -26,14 +26,16 @@ from qbn_tpu_torch.ops.bbb_dense import VAR_EPS, bbb_dense
 
 class GeneratorNoise:
     """Standard normals from a torch.Generator, on the generator's device
-    (then moved to the caller's device)."""
+    (then moved to the caller's device; None: torch's default generator
+    of the caller's device)."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: Optional[torch.Generator]):
         self.generator = generator
 
     def __call__(self, shape, device) -> torch.Tensor:
-        eps = torch.randn(tuple(shape), generator=self.generator,
-                          device=self.generator.device)
+        g = self.generator
+        eps = torch.randn(tuple(shape), generator=g,
+                          device=device if g is None else g.device)
         return eps.to(device)
 
 

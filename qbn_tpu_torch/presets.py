@@ -5,9 +5,8 @@ Tiers: 'regression' (MLP), 'mnist' (LeNet), 'cifar' (ResNet-18 w24). The
 float table is qbn_tpu's, entry for entry, and so is the QAT overlay (10
 epochs of SGD with momentum 0.9 at lr 1e-5, 1e-3 for MC-Dropout on CIFAR;
 batch 1024 for pointwise and SGHMC on CIFAR; gamma 0 for BBB; 'batch'
-loss scaling without a multiplier; `q` and `at` set). `preset` builds a
-Config from the entries whose every field the port carries, and raises
-for the others (SGHMC's burn-in and resampling fields).
+loss scaling without a multiplier; `q` and `at` set). The data fields
+(`valid_portion`) are not carried: the caller gives the batches.
 """
 
 from __future__ import annotations
@@ -83,11 +82,6 @@ def preset(method: str, tier: str, phase: str = "float",
     if (method, tier) not in FLOAT:
         raise KeyError(f"no preset for ({method}, {tier})")
     kw = dict(FLOAT[(method, tier)])
-    missing = sorted(set(kw) - set(Config.__dataclass_fields__))
-    if missing:
-        raise NotImplementedError(
-            f"preset ({method}, {tier}) needs fields the port does not "
-            f"carry yet: {missing}")
     kw.update(
         model=_ARCH[tier] + _SUFFIX[method],
         dataset=_DATASET[tier],

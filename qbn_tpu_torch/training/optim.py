@@ -1,6 +1,7 @@
 """Optimisers and the per-epoch LR schedule (port of
 qbn_tpu/training/optim.py: Adam with and without coupled L2 decay, SGD
-with momentum, cosine or constant LR).
+with momentum, SGHMC (training/sghmc.py) behind the adaptive gradient
+clip, cosine or constant LR).
 
 Written in optax's functional form rather than as torch.optim's in-place
 steps: `init(params) -> state` and `update(grads, state, params) ->
@@ -9,8 +10,6 @@ that the trainer can keep or drop a whole step with `torch.where` (its
 non-finite-loss skip) without a host round trip. The arithmetic follows
 optax's: moments (1 - b) * g**k + b * m, bias correction m / (1 - b**t),
 eps outside the square root, then the learning rate times -1.
-
-SGHMC and the adaptive gradient clip are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +18,8 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from qbn_tpu_torch.utils import tree_leaves
 
 
 class GradientTransformation(NamedTuple):
@@ -31,6 +32,72 @@ def tree_map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+def tree_unflatten(tree, it):
+    """`tree`'s structure with its leaves taken from the iterator `it`."""
+    if isinstance(tree, dict):
+        return {k: tree_unflatten(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def chain(*transforms) -> GradientTransformation:
+    """optax.chain: each transformation's updates feed the next; the
+    state is {'0': first's, '1': second's, ...}."""
+    def init(params):
+        return {str(i): t.init(params) for i, t in enumerate(transforms)}
+
+    def update(grads, state, params):
+        new = {}
+        for i, t in enumerate(transforms):
+            grads, new[str(i)] = t.update(grads, state[str(i)], params)
+        return grads, new
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_adaptive_global_norm(window: int = 1000, std_mul: float = 30.0,
+                                 init_max: float = 1e20
+                                 ) -> GradientTransformation:
+    """Clip the gradients to max_grad, the mean + std_mul * std of the
+    last `window` accepted global norms (qbn_tpu's transform). A norm at
+    or above max_grad is clipped and not written to the buffer; max_grad
+    moves only once `window` norms were accepted. As qbn_tpu's, the mean
+    divides the buffer's sum by the count of accepted norms (past the
+    window, more than the slots it sums), and the std is the population
+    std over the filled slots about that mean."""
+    def init(params):
+        device = _first_leaf(params).device
+        return {"buffer": torch.zeros((window,), device=device),
+                "count": torch.zeros((), dtype=torch.int32, device=device),
+                "max_grad": torch.tensor(init_max, dtype=torch.float32,
+                                         device=device)}
+
+    def update(grads, state, params=None):
+        leaves = list(tree_leaves(grads))
+        total = 0
+        for g in leaves:                          # optax.global_norm
+            total = total + torch.sum(g * g)
+        norm = torch.sqrt(total)
+        scale = torch.clamp(state["max_grad"] / (norm + 1e-12), max=1.0)
+        clipped = tree_map(lambda g: g * scale, grads)
+        accepted = norm < state["max_grad"]
+        slots = torch.arange(window, device=norm.device)
+        idx = state["count"] % window
+        buffer = torch.where(accepted & (slots == idx), norm,
+                             state["buffer"])
+        count = state["count"] + accepted.to(torch.int32)
+        mean = torch.sum(buffer) / torch.clamp(count, min=1)
+        filled = (slots < torch.clamp(count, max=window)).to(torch.float32)
+        var = (torch.sum(filled * (buffer - mean) ** 2)
+               / torch.clamp(torch.sum(filled), min=1.0))
+        max_grad = torch.where(count >= window,
+                               mean + std_mul * torch.sqrt(var),
+                               state["max_grad"])
+        return clipped, {"buffer": buffer, "count": count,
+                         "max_grad": max_grad}
+
+    return GradientTransformation(init, update)
 
 
 def _count(like: torch.Tensor) -> torch.Tensor:
@@ -118,9 +185,12 @@ def sgd(schedule, momentum: float) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def build_optimizer(cfg, steps_per_epoch: int):
+def build_optimizer(cfg, steps_per_epoch: int, sghmc_draws=None):
     """(transformation, schedule) for a config: Adam + cosine for float
-    training, SGD with momentum for QAT fine-tuning."""
+    training, SGD with momentum for QAT fine-tuning, the adaptive clip and
+    SGHMC for the sgld method (burn-in counted in steps: burnin_epochs x
+    steps_per_epoch). sghmc_draws: SGHMC's draw source (training/sghmc.py;
+    by default a generator on the params' device seeded with cfg.seed)."""
     if cfg.lr_schedule == "cosine":
         schedule = cosine_schedule(cfg.learning_rate, steps_per_epoch,
                                    cfg.epochs)
@@ -130,4 +200,12 @@ def build_optimizer(cfg, steps_per_epoch: int):
         return adam(schedule, weight_decay=cfg.weight_decay), schedule
     if cfg.optimizer == "sgd":
         return sgd(schedule, momentum=cfg.momentum), schedule
-    raise NotImplementedError(f"optimizer '{cfg.optimizer}' is not ported")
+    if cfg.optimizer == "sghmc":
+        from qbn_tpu_torch.training.sghmc import sghmc
+        return chain(clip_by_adaptive_global_norm(), sghmc(
+            schedule, burnin_steps=cfg.burnin_epochs * steps_per_epoch,
+            resample_momentum_every=cfg.resample_momentum_iterations,
+            resample_prior_every=cfg.resample_prior_iterations,
+            base_c=cfg.base_c, gauss_sig=cfg.gauss_sig, alpha0=cfg.alpha0,
+            beta0=cfg.beta0, seed=cfg.seed, draws=sghmc_draws)), schedule
+    raise ValueError(f"unknown optimizer '{cfg.optimizer}'")

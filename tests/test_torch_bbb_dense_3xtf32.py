@@ -5,10 +5,12 @@ lo = rna_tf32(a - hi) and takes a*b as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b on
 the tensor cores (mma.sync m16n8k8: eight exact products added into a
 float32 accumulator per instruction), over the wrapper's split of K, the
 partials added in split order. The emulation below does the same in torch
-and is held to chip_smoke.py's `dense_bound` of float64 (copied here):
-the float32 dot-product bound gamma_K * sum |a_k b_k| that the kernel is
-held to on the card. A helper of these tests; nothing on the main path
-uses it.
+and is held to chip_smoke.py's bounds of float64 (copied here): the
+float32 dot-product bound gamma_K * sum |a_k b_k| (`dense_bound`) at the
+LeNet's shapes, and at those and the regression MLP's shapes the bound
+derived for the 3xTF32 products (`dense_bound_3xtf32`), which the kernel
+is held to on the card. A helper of these tests; nothing on the main
+path uses it.
 """
 
 import math
@@ -89,6 +91,29 @@ def dense_bound(x, w, sp, eps):
     return ref, bound
 
 
+def dense_bound_3xtf32(x, w, sp, eps, splits, k_chunk):
+    """chip_smoke.py's bound of the 3xTF32 kernel (derived there): 3.001 *
+    2^-22 of |a b| per product missed by the split, gamma_M of the
+    magnitudes for M = 3 ceil(min(K, k_chunk) / 8) roundings of 2^-22 per
+    mma.sync plus one per split, 2 u more on the variance's float32
+    squares, and the epilogue's roundings. Returns (float64 reference,
+    bound)."""
+    x64, w64, s64, e64 = (t.double() for t in (x, w, sp, eps))
+    k = x.shape[1]
+    u = 2.0 ** -24
+    m = 3 * math.ceil(min(k, k_chunk) / 8) + (splits if splits > 1 else 0)
+    gamma = m * 2.0 ** -22 / (1 - m * 2.0 ** -22)
+    c = 3.001 * 2.0 ** -22 + gamma * (1 + 2.0 ** -9)
+    var = (x64 * x64) @ (s64 * s64)
+    std = torch.sqrt(1e-8 + var)
+    ref = x64 @ w64 + std * e64
+    err_v = (c * (1 + 2 * u) + 2.001 * u) * var
+    low = torch.sqrt(torch.clamp(1e-8 + var - err_v, min=0.0))
+    before = (c * (x64.abs() @ w64.abs()) + err_v / (std + low)
+              * e64.abs() + 3 * u * std * e64.abs())
+    return ref, before * (1 + u) + u * ref.abs()
+
+
 def _inputs(seed, b, k, n):
     """chip_smoke.py's operands: activations of either sign, the BBB
     init's U(-0.01, 0.01) means, softplus(-3 +- 0.5) stds, normals."""
@@ -150,6 +175,33 @@ def test_3xtf32_within_dense_bound(shape):
     # and the plain float32 version is held to the same bound
     plain = bd.bbb_dense_plain(x, w, sp, eps)
     assert float(((plain.double() - ref).abs() / bound).max()) <= 1.0
+
+
+# the regression MLP's shapes: housing's dense_0 (K=13) and heads (N=1),
+# power's dense_0 (K=4), a hidden layer and power's ragged head
+MLP_SHAPES = [(364, 13, 100), (1000, 4, 100), (364, 100, 1),
+              (1000, 100, 100), (889, 100, 1)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + MLP_SHAPES, ids=[
+    "fc_0", "fc_1", "ragged", "mlp_in", "mlp_in_power", "mlp_head",
+    "mlp_hidden", "mlp_ragged"])
+def test_3xtf32_within_its_bound(shape):
+    """The emulation within the 3xTF32 bound (tighter than the float32
+    one at large K, looser at the MLP's K of 4 and 13, where the split's
+    3 * 2^-22 per product outweighs K roundings of 2^-24), and the plain
+    float32 version within the float32 bound, at the LeNet's and the
+    regression MLP's shapes."""
+    b, k, n = shape
+    x, w, sp, eps = _inputs(sum(shape), b, k, n)
+    got = emulate(x, w, sp, eps)
+    ref, bound = dense_bound_3xtf32(x, w, sp, eps, *bd.split_k(b, k, n, 132))
+    assert got.shape == (b, n) and bool(torch.isfinite(got).all())
+    ratio = float(((got.double() - ref).abs() / bound).max())
+    assert ratio <= 1.0, ratio
+    plain = bd.bbb_dense_plain(x, w, sp, eps)
+    _ref, bound32 = dense_bound(x, w, sp, eps)
+    assert float(((plain.double() - ref).abs() / bound32).max()) <= 1.0
 
 
 def test_3xtf32_matches_qbn_tpu_kernel():

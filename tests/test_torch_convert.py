@@ -106,7 +106,8 @@ def _resnet(method, quant=True):
 
 
 def _lenet(method):
-    kw = dict(stochastic=method == "bbb", sigma_prior=0.1)
+    kw = dict(stochastic=method == "bbb", sigma_prior=0.1,
+              dropout_p=P if method == "mcdropout" else 0.0)
     tm = LeNet(quant=QuantConfig(enabled=True, tpu_fused=True), **kw)
     tm.method, tm.task = method, "classification"
     return JLeNet(quant=JQuant(enabled=True, tpu_fused=True), **kw), tm
@@ -118,7 +119,7 @@ def _x(shape, seed=1):
 
 @pytest.mark.parametrize("arch,method", [
     ("resnet", "pointwise"), ("resnet", "mcdropout"), ("resnet", "bbb"),
-    ("lenet", "pointwise"), ("lenet", "bbb")])
+    ("lenet", "pointwise"), ("lenet", "bbb"), ("lenet", "mcdropout")])
 def test_convert_matches(arch, method):
     jm, tm = _resnet(method) if arch == "resnet" else _lenet(method)
     x = _x((B, 32, 32, 3) if arch == "resnet" else (B, 28, 28, 1))

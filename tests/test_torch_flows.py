@@ -7,6 +7,11 @@
   before the valid split, which qbn_tpu's loaders carry as
   `dataset_size`, not by the size of the train subset.
 Both run on the CPU at B=8 with MNIST-shaped inputs made from a seed.
+
+And every (method, tier) of the presets, float and QAT, through the
+flows on the CPU at B=2 (one epoch; SGHMC two, its snapshot at epoch 0):
+`fit` trains with finite metrics and writes its files, `qat` converts,
+`load_trained` reads the result and `evaluate` runs it, INT and float.
 """
 
 import jax.numpy as jnp
@@ -18,7 +23,9 @@ from qbn_tpu.data import loaders as JLoaders
 from qbn_tpu.presets import preset as j_preset
 from qbn_tpu.training.losses import classification_loss as j_loss
 
-from qbn_tpu_torch.flows import fit
+from qbn_tpu_torch.evaluation.mc import evaluate
+from qbn_tpu_torch.flows import fit, qat
+from qbn_tpu_torch.models.factory import load_trained
 from qbn_tpu_torch.models.factory import build_model
 from qbn_tpu_torch.ops.stochastic import GeneratorNoise
 from qbn_tpu_torch.presets import preset
@@ -81,3 +88,35 @@ def test_whole_scaling_counts_the_dataset_before_the_valid_split(
                               cfg.gamma, 1, n_points, scaling="whole",
                               loss_multiplier=cfg.loss_multiplier)
     assert got == pytest.approx(float(want), rel=1e-6)
+
+
+SHAPES = {"regression": (13,), "mnist": (28, 28, 1), "cifar": (32, 32, 3)}
+
+
+@pytest.mark.parametrize("method", ["pointwise", "mcdropout", "bbb",
+                                    "sgld"])
+@pytest.mark.parametrize("tier", sorted(SHAPES))
+def test_every_preset_trains_and_converts(tmp_path, tier, method):
+    rng = np.random.default_rng(7)
+    x = rng.random((2,) + SHAPES[tier], dtype=np.float32)
+    y = (rng.standard_normal((2, 1)).astype(np.float32)
+         if tier == "regression" else rng.integers(0, 10, 2))
+    over = dict(epochs=2, burnin_epochs=0, samples=1) \
+        if method == "sgld" else dict(epochs=1)
+    cfg = preset(method, tier, tpu_fused=True, **over)
+    _m, trainer, _s = fit(cfg, [(x, y)], device="cpu",
+                          save_dir=str(tmp_path / "f"))
+    assert all(np.isfinite(v) for v in trainer.history[-1]["train"].values())
+    qcfg = preset(method, tier, "qat", tpu_fused=True, epochs=1,
+                  samples=cfg.samples)
+    qat(qcfg, str(tmp_path / "f"), [(x, y)], device="cpu",
+        save_dir=str(tmp_path / "q"))
+    for d, mode in (("q", "int"), ("f", "float")):
+        c, model, state = load_trained(str(tmp_path / d), device="cpu")
+        assert (c.q, c.at) == ((True, True) if mode == "int"
+                               else (False, False))
+        _ms, outs, _t = evaluate(model, state, [(x, y)], c.samples,
+                                 torch.Generator().manual_seed(1), "cpu",
+                                 mode=mode)
+        out = outs[0] if tier != "regression" else outs[0][0]
+        assert out.shape[0] == 2 and bool(torch.isfinite(out).all())

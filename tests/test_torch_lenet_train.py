@@ -25,6 +25,15 @@ Tolerances and why:
   divides by sqrt(v) ~ |g|, so a gradient at the level of summation noise
   could amplify ulps up to lr per step (tests/test_lockstep_torch.py saw
   it against torch's Adam); at these inputs no entry does.
+
+The pointwise and MC-Dropout LeNets (their mnist presets, Adam with and
+without L2) take one float step each against qbn_tpu's, the dropout
+masks drawn by a numpy stand-in for `jax.random.bernoulli` and given to
+the port through QueueMasks: the loss within 1e-5 relative; the params, after
+Adam's first update of about lr * sign(g), within 2 * lr, and at most
+1e-4 of them beyond 1e-6 (a gradient at rounding level may take the
+other sign; 26 of 1.2 M entries of fc_0 at these inputs, the count
+printed).
 """
 
 import jax
@@ -45,7 +54,7 @@ from qbn_tpu.utils import split_rngs, sum_kl as j_sum_kl
 
 from qbn_tpu_torch.convert import from_jax_state, to_numpy_state
 from qbn_tpu_torch.models.factory import build_model
-from qbn_tpu_torch.ops.stochastic import QueueNoise
+from qbn_tpu_torch.ops.stochastic import QueueMasks, QueueNoise
 from qbn_tpu_torch.presets import preset
 from qbn_tpu_torch.training import metrics as TM
 from qbn_tpu_torch.training.losses import classification_loss
@@ -300,3 +309,52 @@ def test_nonfinite_loss_skips_the_step(setup, normals):
     assert before.keys() == after.keys()
     for k in before:
         np.testing.assert_array_equal(after[k], before[k], err_msg=str(k))
+
+
+@pytest.mark.parametrize("method", ["pointwise", "mcdropout"])
+def test_one_float_step_of_the_deterministic_lenets(monkeypatch, method):
+    """One float training step of the mnist preset from qbn_tpu's init:
+    MC-Dropout's three sites draw one mask each (per image and channel
+    after the convs, per element after fc_0)."""
+    rng = np.random.RandomState(6)
+    masks = []
+
+    def bernoulli(key, p=0.5, shape=None, *a, **k):
+        arr = rng.rand(*shape) < float(p)
+        masks.append(arr[None].astype(np.float32))
+        return jnp.asarray(arr)
+
+    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
+    jcfg, cfg = j_preset(method, "mnist"), preset(method, "mnist")
+    jmodel, model = j_build(jcfg), build_model(cfg)
+    jvars = j_init(jmodel, jax.random.PRNGKey(8), jnp.zeros((B, 28, 28, 1)))
+    np_vars = jax.tree.map(np.asarray, jvars)
+    x = rng.rand(B, 28, 28, 1).astype(np.float32)
+    y = rng.randint(0, 10, B)
+    jtx, _ = j_optimizer(jcfg, N_BATCHES)
+    jstep = j_make_step(jmodel, jcfg, jtx, "float", N_BATCHES,
+                        N_BATCHES * B, jit_compile=False)
+    params = jvars["params"]
+    j0 = JState(params=params, model_state={}, opt_state=jtx.init(params),
+                step=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(1))
+    masks.clear()
+    j1, _m, jlogs = jstep(j0, JM.cls_metrics_init(), jnp.asarray(x),
+                          jnp.asarray(y))
+    assert len(masks) == (3 if method == "mcdropout" else 0)
+    tx, _ = build_optimizer(cfg, N_BATCHES)
+    qmasks = QueueMasks(masks)
+    trainer = Trainer(model, cfg, tx, "float", N_BATCHES, N_BATCHES * B,
+                      QueueNoise([]), "cpu", masks=qmasks)
+    t1, _m, tlogs = trainer.train_step(
+        trainer.init_state(from_jax_state(np_vars)), TM.cls_metrics_init(),
+        torch.from_numpy(x), torch.from_numpy(y), trainer.noise, qmasks)
+    assert not qmasks.queue
+    assert abs(float(tlogs["obj"]) - float(jlogs["obj"])) <= \
+        1e-5 * abs(float(jlogs["obj"]))
+    jp = dict(_leaves(jax.tree.map(np.asarray, j1.params)))
+    d = np.concatenate([np.abs(v.detach().numpy() - jp[p]).reshape(-1)
+                        for p, v in _leaves(t1.params)])
+    n_off = int((d > 1e-6).sum())
+    print(f"{method}: params max abs diff {d.max():.3g}, {n_off} of "
+          f"{d.size} beyond 1e-6")
+    assert d.max() <= 2 * cfg.learning_rate and n_off <= 1e-4 * d.size

@@ -96,7 +96,3 @@ def test_losses_match(scaling):
     for a, b in zip(got, want):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
 
-
-def test_sghmc_not_ported():
-    with pytest.raises(NotImplementedError):
-        build_optimizer(Config(optimizer="sghmc"), 2)

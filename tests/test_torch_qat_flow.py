@@ -8,7 +8,7 @@ from the committed float checkpoint of the MC-Dropout ResNet-18
   observer fresh, the qconst placeholders), bitwise.
 - The flow end to end: one QAT step, convert, the directory it saves
   read back by `load_trained` (the same state), and `evaluate` on it.
-- Its device default, and what it refuses.
+- Its device default.
 """
 
 import inspect
@@ -104,11 +104,3 @@ def test_qat_defaults_to_the_card_and_raises_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         qat(preset("bbb", "mnist", "qat"), FLOAT, _batches(0, 1))
 
-
-@pytest.mark.parametrize("method,tier", [("mcdropout", "mnist"),
-                                         ("pointwise", "regression")])
-def test_qat_refuses_what_is_not_ported(method, tier):
-    """The MC-Dropout LeNet's and the MLP's QAT are not ported: flows.qat
-    says so before it trains."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        qat(preset(method, tier, "qat"), FLOAT, [], device="cpu")
