@@ -17,7 +17,13 @@ What is ported so far:
   fused local-reparametrisation kernel, `csrc/bbb_dense.cu`, with
   `tpu_fused=True`;
 - QAT and convert to the INT state that the evaluation reads
-  (`flows.qat`, snapshot by snapshot for SGHMC).
+  (`flows.qat`, snapshot by snapshot for SGHMC);
+- the experiment runner: the data pipeline (`data/`: readers with their
+  synthetic stand-ins, the UCI folds, loaders whose crop, flip and
+  normalisation run on the batch's device, the distortion cells), the
+  uncertainty harness (`evaluation/harness.py`: splits, OOD set, the
+  3 x 5 distortion sweep, regression folds, results.json) and the run
+  flows behind `python -m qbn_tpu_torch.run`.
 The kernels are built with nvcc at first use (`ops/_build.py`). Entry
 points run on the card (`device="cuda"`) unless the caller asks for the
 CPU, where every kernel's plain PyTorch version runs instead.

@@ -3,9 +3,9 @@ of qbn_tpu/models/layers.py).
 
 Only the fields that the ported paths read are kept (INT and float
 evaluation, float training with Adam or SGHMC, QAT, the checkpoint
-policy); `Config.from_json` ignores the other keys of an experiment's
-config.json (the data and mesh fields), and `to_json` writes the
-port's fields. `tpu_fused` keeps
+policy, the data pipeline and the experiment runner); `Config.from_json`
+ignores the other keys of an experiment's config.json (the mesh and
+profiling fields), and `to_json` writes the port's fields. `tpu_fused` keeps
 qbn_tpu's name so that a config.json carries across; in the port it routes
 the BBB local-reparametrisation dense layers through the hand-written CUDA
 kernel of `ops/bbb_dense.py`.
@@ -53,6 +53,8 @@ class Config:
     # above the best so far + sghmc_guard (qbn_tpu's guard; 0 is off)
     sghmc_guard: float = 0.0
     # data
+    data: str = "./data"                  # dataset files (else stand-ins)
+    valid_portion: float = 0.1            # of the train set, for validation
     input_size: Tuple[int, ...] = (32, 32, 3)   # NHWC
     output_size: int = 10
     # quantisation
@@ -62,7 +64,9 @@ class Config:
     weight_precision: int = 8             # bits, 2..8 (int)
     # bookkeeping
     seed: int = 1
+    debug: bool = False                   # every loop stops after one batch
     save: Optional[str] = None            # the run directory (None: none)
+    load: Optional[str] = None            # a QAT run's float run directory
     save_last: bool = True                # else: save on best validation
     report_freq: int = 50
     tpu_fused: bool = False               # BBB dense through the CUDA kernel

@@ -24,18 +24,28 @@ once; an ensemble runs one forward per member.
 the predictive (classification: the mean of the probabilities;
 regression: E[mu] and Var[mu] (ddof=1) + E[var]), folded into the metric
 state. `evaluate` is the entry point and dispatches on the model's
-`method` (models/factory.py).
+`method` (models/factory.py). For the harness, `evaluate_with_loader`
+evaluates one split with its own generator (qbn_tpu's per-split key) and
+returns its metrics, and `evaluate_distortion_sweep` the 15 distorted
+test sets, made on the device from one upload of the clean test set.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import itertools
 import time
+import zlib
 from typing import Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from qbn_tpu_torch.convert import to_device
+from qbn_tpu_torch.data import datasets as D
+from qbn_tpu_torch.data.distortions import (
+    DISTORTIONS, LEVELS, apply_spec, gather_spec)
 from qbn_tpu_torch.evaluation.ensemble import member, members
 from qbn_tpu_torch.models.architectures import ResNet
 from qbn_tpu_torch.ops.sample_weights import QPARAM_KEYS, draw_layers, pack_layers
@@ -253,7 +263,8 @@ def evaluate(model, state, batches: Iterable, samples: int,
                            else contextlib.nullcontext()):
         for x, y in batches:
             t0 = time.perf_counter()
-            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+            x = torch.as_tensor(x, dtype=torch.float32,
+                                device=device).contiguous()
             y = torch.as_tensor(y, device=device,
                                 dtype=torch.float32 if regression
                                 else torch.int64)
@@ -270,3 +281,94 @@ def evaluate(model, state, batches: Iterable, samples: int,
             seconds.append(time.perf_counter() - t0)
             outputs.append(agg)
     return metric_state, outputs, seconds
+
+
+def split_generator(cfg, salt: str, seed: int = 0, device="cuda"):
+    """The generator of one split's posterior draws and masks, on
+    `device`: qbn_tpu keys a split from PRNGKey(cfg.seed + 1234) with
+    crc32(salt) folded in, and each batch with seed * 1000003 + its
+    index; here one generator per (cfg.seed, seed, salt) serves the
+    split's batches in order. The seed is a 64-bit digest of the three,
+    every bit depending on each: the CPU's generator keeps only the low
+    32 bits of its seed."""
+    crc = zlib.crc32(salt.encode()) & 0x7FFFFFFF
+    digest = hashlib.blake2b(f"{cfg.seed + 1234}/{seed}/{crc}".encode(),
+                             digest_size=8).digest()
+    return torch.Generator(device=device).manual_seed(
+        int.from_bytes(digest, "little"))
+
+
+def evaluate_with_loader(loader, model, state, cfg, mode: str,
+                         samples: Optional[int] = None, seed: int = 0,
+                         collect_outputs: bool = True, salt: str = "",
+                         device="cuda"):
+    """Monte-Carlo evaluation of one split (qbn_tpu's
+    `evaluate_with_loader`): its (x, y) batches from `loader` (with
+    cfg.debug, the first only), `evaluate` with the split's generator
+    (`split_generator(cfg, salt, seed)`), cfg.samples samples unless
+    given. Returns (error, ece, entropy, nll, outputs, targets,
+    example-samples per second): for regression error is the RMSE and
+    ece and entropy are 0; outputs and targets are numpy (the (N,
+    classes) probabilities, or (mean, var)), None without
+    collect_outputs."""
+    device = resolve_device(device)
+    samples = cfg.samples if samples is None else samples
+    gen = split_generator(cfg, salt, seed, device)
+    targets: List = []
+
+    def batches():
+        for x, y in (itertools.islice(loader, 1) if cfg.debug else loader):
+            if collect_outputs:
+                targets.append(np.asarray(torch.as_tensor(y).cpu()))
+            yield x, y
+
+    t0 = time.perf_counter()
+    metric_state, outs, _sec = evaluate(model, state, batches(), samples,
+                                        gen, device, mode)
+    dt = max(time.perf_counter() - t0, 1e-9)
+    sps = float(metric_state["count"]) * samples / dt
+    if model.task == "classification":
+        m = {k: float(v) for k, v in M.cls_metrics_compute(
+            metric_state).items()}
+        error, ece, entropy = m["error"], m["ece"], m["entropy"]
+    else:
+        m = {k: float(v) for k, v in M.reg_metrics_compute(
+            metric_state).items()}
+        error, ece, entropy = m["rmse"], 0.0, 0.0
+    out = tgt = None
+    if collect_outputs and outs:
+        if model.task == "classification":
+            out = torch.cat(outs).cpu().numpy()
+        else:
+            out = tuple(torch.cat(o).cpu().numpy() for o in zip(*outs))
+        tgt = np.concatenate(targets)
+    return error, ece, entropy, m["nll"], out, tgt, sps
+
+
+def evaluate_distortion_sweep(model, state, cfg, mode: str,
+                              samples: Optional[int] = None, seed: int = 0,
+                              device="cuda"):
+    """The 3 x 5 distortion sweep of an image dataset's test set (qbn_tpu's
+    device sweep): the clean images uploaded once, each cell made on the
+    device (`apply_spec`), normalised, cut into cfg.batch_size batches in
+    order and evaluated with the cell's generator (salt
+    f"{distortion}{level}"), as qbn_tpu's loader path would evaluate
+    `get_test_loader(cfg, distortion, level)`. With cfg.debug, the first
+    cell only. Returns [(distortion, level, error, ece, entropy, nll)]."""
+    device = resolve_device(device)
+    x, y = D.load_images(cfg.dataset, cfg.data, train=False)
+    xd, yd = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    norm = "cifar" if cfg.dataset == "cifar" else None
+    bsz = cfg.batch_size
+    cells = [(d, lv) for d in DISTORTIONS for lv in range(LEVELS)]
+    out = []
+    for d, lv in cells[:1] if cfg.debug else cells:
+        xc = D.normalize(apply_spec(xd, gather_spec(d, lv, *x.shape[1:3])),
+                         norm)
+        batches = [(xc[i:i + bsz], yd[i:i + bsz])
+                   for i in range(0, len(xc), bsz)]
+        error, ece, entropy, nll, _o, _t, _sps = evaluate_with_loader(
+            batches, model, state, cfg, mode, samples, seed,
+            collect_outputs=False, salt=f"{d}{lv}", device=device)
+        out.append((d, lv, error, ece, entropy, nll))
+    return out

@@ -57,11 +57,16 @@ def load_trained(exp_dir: str, device="cuda", special_info: str = ""):
     device = resolve_device(device)
     cfg = Config.from_json(os.path.join(exp_dir, "config.json"))
     model = build_model(cfg)
+    return cfg, model, to_device(load_state(cfg, exp_dir, special_info),
+                                 device)
+
+
+def load_state(cfg: Config, exp_dir: str, special_info: str = ""):
+    """The state that `load_trained` reads for cfg's method, as CPU
+    tensors: weights{special_info}.msgpack, or for SGHMC the last
+    cfg.samples snapshots stacked."""
     if cfg.method == "sgld":
-        state = load_ensemble(exp_dir, cfg.samples,
-                              special_info[1:] + "_" if special_info
-                              else "")
-    else:
-        state = from_jax_state(read_checkpoint(
-            checkpoint_path(exp_dir, special_info)))
-    return cfg, model, to_device(state, device)
+        return load_ensemble(exp_dir, cfg.samples,
+                             special_info[1:] + "_" if special_info else "")
+    return from_jax_state(read_checkpoint(
+        checkpoint_path(exp_dir, special_info)))

@@ -5,8 +5,8 @@ Tiers: 'regression' (MLP), 'mnist' (LeNet), 'cifar' (ResNet-18 w24). The
 float table is qbn_tpu's, entry for entry, and so is the QAT overlay (10
 epochs of SGD with momentum 0.9 at lr 1e-5, 1e-3 for MC-Dropout on CIFAR;
 batch 1024 for pointwise and SGHMC on CIFAR; gamma 0 for BBB; 'batch'
-loss scaling without a multiplier; `q` and `at` set). The data fields
-(`valid_portion`) are not carried: the caller gives the batches.
+loss scaling without a multiplier; `q` and `at` set), with the data
+fields: the tier's dataset, `valid_portion` 0.1 (0.2 for regression).
 """
 
 from __future__ import annotations
@@ -88,6 +88,7 @@ def preset(method: str, tier: str, phase: str = "float",
         task="regression" if tier == "regression" else "classification",
         input_size=_INPUT[tier],
         output_size=1 if tier == "regression" else 10,
+        valid_portion=0.1 if tier != "regression" else 0.2,
     )
     if phase == "qat":
         # the QAT runner scripts use 'batch' scaling with no multiplier,

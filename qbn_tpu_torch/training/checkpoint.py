@@ -230,6 +230,13 @@ def save_variables(variables, path: str) -> None:
         fh.write(msgpack_serialize(to_numpy_state(variables)))
 
 
+def model_size_mb(variables) -> float:
+    """The model's serialised size in MB (qbn_tpu's `model_size_mb`: the
+    byte count of its msgpack checkpoint, the same bytes here)."""
+    from qbn_tpu_torch.convert import to_numpy_state
+    return len(msgpack_serialize(to_numpy_state(variables))) / 1e6
+
+
 def read_checkpoint(path: str):
     with open(path, "rb") as fh:
         return msgpack_restore(fh.read())

@@ -51,16 +51,20 @@ def cls_metrics_update(state, probs, target):
                                 device=probs.device)
     bin_idx = torch.clamp(
         (conf[:, None] >= boundaries[None, 1:]).sum(dim=1), 0, n_bins - 1)
+    # the per-bin sums as a reduction over a one-hot mask, not index_add:
+    # on the card index_add adds floats atomically, in no fixed order, and
+    # a split's ECE would change from run to run in its last bits
+    hits = (bin_idx[:, None] == torch.arange(
+        n_bins, device=probs.device)[None, :]).to(torch.float32)
     return {
         "errors": state["errors"] + torch.sum(1.0 - correct),
         "nll_sum": state["nll_sum"] + torch.sum(-one_hot * logp),
         "brier_sum": state["brier_sum"] + torch.sum((probs - one_hot) ** 2),
         "entropy_sum": state["entropy_sum"] + torch.sum(-probs * logp),
         "count": state["count"] + float(target.shape[0]),
-        "ece_conf": state["ece_conf"].index_add(0, bin_idx, conf),
-        "ece_acc": state["ece_acc"].index_add(0, bin_idx, correct),
-        "ece_count": state["ece_count"].index_add(
-            0, bin_idx, torch.ones_like(conf)),
+        "ece_conf": state["ece_conf"] + torch.sum(hits * conf[:, None], 0),
+        "ece_acc": state["ece_acc"] + torch.sum(hits * correct[:, None], 0),
+        "ece_count": state["ece_count"] + torch.sum(hits, 0),
     }
 
 

@@ -20,7 +20,9 @@ collections keep their values. Validation runs eval forwards
 running statistics), as qbn_tpu's QAT validation does.
 
 qbn_tpu's device-resident epoch scans and mesh-sharded steps are not
-ported; the loop runs over given (x, y) batches.
+ported; the loop runs over (x, y) batches, a loader's afresh each epoch.
+With cfg.debug every pass stops after its first batch, as qbn_tpu's
+does.
 """
 
 from __future__ import annotations
@@ -210,6 +212,8 @@ class Trainer:
                 state, metric_state, x, y, self.noise, self.masks)
             if i % self.cfg.report_freq == 0 and i > 0:
                 log.info("train step %d obj=%.4f", i, float(logs["obj"]))
+            if self.cfg.debug:
+                break
         out = {k: float(v) for k, v in metrics_compute(
             task, metric_state).items()}
         out.update({k: float(v) for k, v in logs.items()})
@@ -233,6 +237,8 @@ class Trainer:
             x, y = self._tensors(x, y)
             state, metric_state = self.eval_step(state, metric_state, x, y,
                                                  noise, masks)
+            if self.cfg.debug:
+                break
         return state, {k: float(v) for k, v in metrics_compute(
             task, metric_state).items()}
 
