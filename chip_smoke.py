@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (qbn_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--f4]
+    python3 chip_smoke.py [--seed N] [--f4] [--dispatch]
 
 Run from the root of a checkout: it builds the port's CUDA kernels with nvcc
 and drives the port's paths at full width: INT8 Monte-Carlo evaluation
@@ -17,8 +17,10 @@ float evaluation of the regression MLP of the four methods, all on
 inputs made from --seed with numpy; then the experiment runner: the
 campaign's CIFAR-10 and SVHN stand-ins written to disk, the uncertainty
 harness on the committed campaign states (held against the committed
-results.json) and `python -m qbn_tpu_torch.run`'s flows. Phases, in
-order, each printing its seconds:
+results.json) and `python -m qbn_tpu_torch.run`'s flows; then the
+serving export of the flagship's predictor and the experiment grid
+(with --dispatch, also the cost of the kernels' operator dispatch).
+Phases, in order, each printing its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
   2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
@@ -105,7 +107,12 @@ order, each printing its seconds:
               steps at B=8 card against CPU with the same draws, and the
               clip and SGHMC alone on the same inputs (SGHMC_CHAINS
               chains, from the inits of seeds N on); the Gamma sampler's
-              moments on the card
+              moments on the card. A non-finite loss in the last
+              member's QAT steps (F5) replays them to the first
+              non-finite step and runs it under
+              profiling.nan_debugging, printing the member, the first
+              non-finite module with its inputs' statistics and the
+              member's observer ranges, then fails
   15. regression the MLP of the four methods (qbn_tpu's regression
               presets, tpu_fused) on housing's and power's table shapes:
               `flows.fit` with the fold's special_info (the dense kernel
@@ -151,7 +158,30 @@ order, each printing its seconds:
               float (7 epochs, 3 of burn-in, 2 samples) then qat; each
               run's files under qbn_tpu's names, the qat runs' params
               those of the float runs' checkpoints after one step
-  19. times   each kernel against its plain version and its bound, in
+  19. serving the flagship's INT predictor (S=100) exported with
+              torch.export (the kernels reached as the qbn_tpu_torch::
+              operators), saved and loaded, in four variants: the bank
+              frozen at export or drawn per call, each whole and in
+              chunks of 20; each at B=256 (4 requests) and B=1 (8):
+              every answer bitwise the live mc_predict + aggregate on the
+              same seed's draw or the same bank, the graphs' operators,
+              the launches (no draw when frozen), frozen answers
+              independent of the seed, chunked equal to whole, a CPU
+              export moved to the card equal to the card's; at B=1, the
+              seeded draw bitwise its plain version (torch Philox +
+              inverse CDF) on the served key, each of a forward's 20
+              convs bitwise the plain conv on its recorded inputs, and a
+              served answer bitwise the plain path's (plain draw, plain
+              convs); ms per call and load seconds
+  20. dispatch (only with --dispatch) what the operators add to a BBB
+              batch (S=100, B=256) against their CUDA implementations
+              called directly, in turns, and host microseconds per conv
+              operator call
+  21. grid    `qbn_tpu_torch.sweep` (--debug) on the pointwise regression
+              tier, seeds 1 and 2, float then cell a_7_w_8: the -avg
+              leaves against numpy's nanmean and nanstd, a rerun skipping
+              every DONE cell
+  22. times   each kernel against its plain version and its bound, in
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
               against the float64 cuDNN conv alone and, at every shape
@@ -195,8 +225,8 @@ from qbn_tpu_torch.config import Config
 from qbn_tpu_torch.convert import to_device
 from qbn_tpu_torch.evaluation.ensemble import stack_variables
 from qbn_tpu_torch.evaluation.mc import (
-    draw_sampled_weights, evaluate, mc_predict, plan_layers, presample_plan,
-    sampled_tree)
+    aggregate, draw_sampled_weights, evaluate, mc_predict, plan_layers,
+    presample_plan, sampled_tree)
 from qbn_tpu_torch.flows import fit
 from qbn_tpu_torch.models import layers as model_layers
 from qbn_tpu_torch.models.architectures import CUTS
@@ -405,7 +435,8 @@ def phase_kernel(state, plan, samples, seed, dev):
     # against the plain version given the same seed and offset
     for name, lay in (("flagship", layers), ("mixed pack", mixed)):
         gen = torch.Generator().manual_seed(seed + 1)
-        sd, off = sw.seed_offset(torch.Generator().manual_seed(seed + 1))
+        sd, off = sw.key_from_generator(
+            torch.Generator().manual_seed(seed + 1)).tolist()
         got_p = sw.draw_layers(sw.pack_layers(lay, samples), generator=gen)
         max_err = max(max_err, _max_code_diff(
             got_p, plain_seeded(lay, samples, sd, off, dev),
@@ -1226,7 +1257,8 @@ def phase_times(state, plan, samples, seed):
     layers = plan_layers(state, plan)
     pack = sw.pack_layers(layers, samples)
     gen = torch.Generator().manual_seed(seed)
-    sd, off = sw.seed_offset(torch.Generator().manual_seed(seed + 9))
+    sd, off = sw.key_from_generator(
+        torch.Generator().manual_seed(seed + 9)).tolist()
 
     def plain():
         plain_seeded(layers, samples, sd, off, dev)
@@ -2567,6 +2599,68 @@ def _gamma_check(params, seed, dev, n=100_000):
     return out
 
 
+def _qat_steady_or_diagnose(trainer, state, batches, member):
+    """_steady_step_ms of an SGHMC member's QAT trainer. On a non-finite
+    loss (ROADMAP.md section 3, F5) it runs `_diagnose_non_finite` and
+    then fails as before."""
+    gen = trainer.noise.generator
+    saved = gen.get_state() if gen is not None else None
+    try:
+        return _steady_step_ms(trainer, state, batches)
+    except RuntimeError as e:
+        if "non-finite loss" not in str(e):
+            raise
+        _diagnose_non_finite(trainer, state, batches, saved, member)
+        raise
+
+
+def _diagnose_non_finite(trainer, state, batches, gen_state, member):
+    """F5's diagnostic: the steps replayed one by one from `state` with the
+    same draws (the generator reset to `gen_state`) up to the first
+    non-finite loss; that step run again under
+    profiling.nan_debugging; printed: the member, the step, the first
+    non-finite module with its inputs' statistics (or the backward's
+    anomaly), and the member's observer ranges [min, max]."""
+    from qbn_tpu_torch import profiling
+    gen = trainer.noise.generator
+    task = trainer.cfg.task
+    if gen is not None:
+        gen.set_state(gen_state)
+    metric = metrics_init(task, trainer.device)
+    for k, (x, y) in enumerate(batches):
+        before = gen.get_state() if gen is not None else None
+        new, metric, logs = trainer.train_step(state, metric, x, y,
+                                               trainer.noise, trainer.masks)
+        if not math.isfinite(float(logs["obj"])):
+            break
+        state = new
+    else:
+        print(f"F5 diagnostic, member {member}: the replayed losses are "
+              "all finite", flush=True)
+        return
+    print(f"F5 diagnostic, member {member}: step {k} of {len(batches)}, "
+          f"loss {float(logs['obj'])}", flush=True)
+    if gen is not None:
+        gen.set_state(before)
+    try:
+        with profiling.nan_debugging(trainer.model):
+            trainer.train_step(state, metrics_init(task, trainer.device), x,
+                               y, trainer.noise, trainer.masks)
+        print("  no module output was non-finite and the backward raised "
+              "nothing")
+    except profiling.NonFiniteError as err:
+        print(f"  first non-finite module: {err.module}; its inputs: "
+              f"{json.dumps(err.inputs)}")
+    except RuntimeError as err:       # autograd's anomaly mode
+        print(f"  the backward: {str(err)[:800]}")
+    ranges = {}
+    for path, v in _leaf_items(state.model_state.get("quant", {})):
+        ranges.setdefault(".".join(path[:-1]), {})[path[-1]] = float(v)
+    print(f"  observer ranges of member {member}: " + json.dumps(
+        {k: [r.get("min_val"), r.get("max_val")]
+         for k, r in ranges.items()}), flush=True)
+
+
 def phase_sghmc(seed, dev):
     """The SGHMC ResNet-18 from start to finish: flows.fit of the sgld
     cifar preset (cut as above) writing its 7 posterior snapshots;
@@ -2619,8 +2713,8 @@ def phase_sghmc(seed, dev):
               f"{json.dumps(qtrainer.history[-1]['train'])}", flush=True)
         check(sorted(os.listdir(qdir)) == sorted(
             ["config.json", "scalars.jsonl"] + snaps), "sghmc qat files")
-        ms["sghmc qat step"], _s = _steady_step_ms(
-            qtrainer, _s_of(qtrainer, members, "sgld"), qb)
+        ms["sghmc qat step"], _s = _qat_steady_or_diagnose(
+            qtrainer, _s_of(qtrainer, members, "sgld"), qb, snaps[-1])
         print(f"sghmc qat: steady {ms['sghmc qat step']:.3f} ms per step at "
               f"B={qcfg.batch_size}")
         _profile_step(qtrainer, _s, qb[0], "profiled sghmc qat step")
@@ -2752,7 +2846,8 @@ def _draw_at_model(state, samples, seed, dev, what):
                          device=dev) for (w, *_r) in layers]
     err = _max_code_diff(sw.draw_layers(pack, noise=noise),
                          plain_draw(layers, noise), f"{what}, explicit noise")
-    sd, off = sw.seed_offset(torch.Generator().manual_seed(seed + 1))
+    sd, off = sw.key_from_generator(
+        torch.Generator().manual_seed(seed + 1)).tolist()
     got = sw.draw_layers(pack, generator=torch.Generator().manual_seed(
         seed + 1))
     err = max(err, _max_code_diff(
@@ -3438,12 +3533,362 @@ def _s_of(trainer, converted, method):
     return trainer.init_state(converted)
 
 
+# -- this slice: serving, the operators' dispatch, the grid ------------------
+
+# the served flagship: S=100, requests of 256 and of 1, chunks of 20
+SERVE_SAMPLES, SERVE_CHUNK = 100, 20
+SERVE_REQUESTS = {256: 4, 1: 8}
+SERVE_FREEZE = 5              # the frozen bank's seed (plus --seed)
+SERVE_OPS = {"draw": "qbn_tpu_torch.draw_int8.default",
+             "conv": "qbn_tpu_torch.int_conv_merged.default"}
+
+
+def _graph_ops(loaded):
+    return sorted({str(n.target) for n in loaded.exported.graph.nodes
+                   if n.op == "call_function"
+                   and str(n.target).startswith("qbn_tpu_torch.")})
+
+
+def _served(loaded, requests):
+    """Each request through the loaded artifact: (answers, host ms per
+    call, each ending in a synchronise)."""
+    answers, ms = [], []
+    for x, sd in requests:
+        t0 = time.perf_counter()
+        answers.append(loaded.call(x, sd))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return answers, ms
+
+
+def phase_serving(seed, dev):
+    """The flagship's INT predictor exported with torch.export on the
+    card at S=SERVE_SAMPLES, in four variants (the bank frozen at export
+    or drawn per call, each whole and in chunks of SERVE_CHUNK), each at
+    B=256 and B=1: saved, loaded from its files, and answering
+    SERVE_REQUESTS; every answer bitwise the live mc_predict + aggregate
+    on the same seed's draw or the same bank; the graphs call the draw
+    (not when frozen) and conv operators; the launch counts (20 convs a
+    chunk's forward, one draw a seeded call); frozen answers independent
+    of the seed, chunked equal to whole; a CPU export moved to the card
+    equal to the card's. Returns (launch counts, timings)."""
+    from qbn_tpu_torch.serving import export_predictor, load_predictor
+    from qbn_tpu_torch.serving.export import DRAW_STREAM, seed_key
+    cfg, model, state = load_trained(EXP, device=dev)
+    plan = presample_plan(state)
+    s = SERVE_SAMPLES
+    rng = np.random.default_rng(seed + 101)
+    requests = {b: [(torch.as_tensor(rng.random((b, 32, 32, 3),
+                                                dtype=np.float32),
+                                     device=dev), seed + 1000 + i)
+                    for i in range(n)] for b, n in SERVE_REQUESTS.items()}
+    counts = {"draw": 0, "conv": 0,
+              "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0}}
+    timing = {}
+
+    def live(x, sampled):
+        with torch.no_grad(), full_float32():
+            return aggregate(mc_predict(model, state, x, samples=s,
+                                        plan=plan, presampled=sampled))
+
+    with torch.no_grad():
+        bank = draw_sampled_weights(state, plan, s, key=seed_key(
+            seed + SERVE_FREEZE, DRAW_STREAM).to(dev))
+    answers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for frozen in (True, False):
+            for chunk in (None, SERVE_CHUNK):
+                for b, reqs in requests.items():
+                    name = (f"{'frozen' if frozen else 'seeded'}"
+                            f"{f' chunk {chunk}' if chunk else ''} B={b}")
+                    path = os.path.join(tmp, name.replace(" ", "_"))
+                    t0 = time.perf_counter()
+                    blob = export_predictor(
+                        model, state, cfg, mode="int", batch=b,
+                        input_shape=(32, 32, 3), path=path, samples=s,
+                        use_plan=True, chunk=chunk,
+                        freeze_draws=seed + SERVE_FREEZE if frozen else None)
+                    export_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    loaded = load_predictor(path)
+                    load_s = time.perf_counter() - t0
+                    ops = _graph_ops(loaded)
+                    want = sorted([SERVE_OPS["conv"]] + (
+                        [] if frozen else [SERVE_OPS["draw"]]))
+                    check(ops == want, f"serving {name}: graph ops {ops}")
+                    _reset_counts()
+                    got, ms = _served(loaded, reqs)
+                    forwards = len(reqs) * (s // chunk if chunk else 1)
+                    check(sw.launches == (0 if frozen else len(reqs))
+                          and ic.launches == CONVS_PER_BATCH * forwards,
+                          f"serving {name}: draw {sw.launches}, conv "
+                          f"{ic.launches} launches for {len(reqs)} calls")
+                    counts["draw"] += sw.launches
+                    counts["conv"] += ic.launches
+                    for k, v in ic.launches_by_design.items():
+                        counts["conv_by_design"][k] += v
+                    for (x, sd), a in zip(reqs, got):
+                        with torch.no_grad():
+                            sampled = bank if frozen else \
+                                draw_sampled_weights(
+                                    state, plan, s,
+                                    key=seed_key(sd, DRAW_STREAM).to(dev))
+                        check(a.shape == (b, 10) and torch.equal(
+                            a, live(x, sampled)),
+                            f"serving {name}: an answer differs from the "
+                            "live predictor's")
+                    if frozen:
+                        x, sd = reqs[0]
+                        check(torch.equal(loaded.call(x, sd + 77), got[0]),
+                              f"serving {name}: the frozen bank's answer "
+                              "moved with the seed")
+                    answers[name] = got
+                    steady = ms[1:]
+                    timing[name] = {"ms": sum(steady) / len(steady),
+                                    "first_ms": ms[0], "load_s": load_s,
+                                    "export_s": export_s,
+                                    "mb": os.path.getsize(blob) / 1e6}
+                    print(f"serving {name}: export {export_s:.2f} s, "
+                          f"{timing[name]['mb']:.1f} MB, load "
+                          f"{load_s:.3f} s, {timing[name]['ms']:.3f} ms per "
+                          f"call (first {ms[0]:.1f}); launches draw "
+                          f"{sw.launches} conv {ic.launches}; == live, "
+                          "bitwise", flush=True)
+                    del loaded
+                    torch.cuda.empty_cache()
+        for frozen in ("frozen", "seeded"):
+            for b in SERVE_REQUESTS:
+                whole = answers[f"{frozen} B={b}"]
+                parts = answers[f"{frozen} chunk {SERVE_CHUNK} B={b}"]
+                check(all(torch.equal(u, v) for u, v in zip(whole, parts)),
+                      f"serving {frozen} B={b}: chunked != whole")
+        # the CPU export (the kernels' plain versions traced on the host),
+        # moved to the card: the card's answers
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "cpu")
+        export_predictor(model, to_device(state, torch.device("cpu")), cfg,
+                         mode="int", batch=1, input_shape=(32, 32, 3),
+                         path=path, samples=s, use_plan=True)
+        moved = load_predictor(path, device=dev)
+        check(moved.manifest["platforms"] == ["cpu"], "cpu manifest")
+        _reset_counts()
+        got, _ms = _served(moved, requests[1])
+        check(sw.launches == len(got)
+              and ic.launches == CONVS_PER_BATCH * len(got),
+              f"moved CPU export: draw {sw.launches}, conv {ic.launches}")
+        counts["draw"] += sw.launches
+        counts["conv"] += ic.launches
+        for k, v in ic.launches_by_design.items():
+            counts["conv_by_design"][k] += v
+        check(all(torch.equal(u, v) for u, v in zip(got,
+                                                      answers["seeded B=1"])),
+              "the CPU export moved to the card != the card's export")
+        print(f"serving: a CPU export moved to the card == the card's "
+              f"export, bitwise, B=1 ({time.perf_counter() - t0:.2f} s)")
+    # the kernels against their plain versions at the served B=1 shapes
+    # (the conv's launch grid and the pixel body's sample split differ
+    # from B=256's): the seeded draw on a served call's key, each conv of
+    # that call's forward on its recorded inputs, and the served answer
+    # against the plain path (plain draw, plain convs). These launches
+    # are comparisons and are not counted.
+    t0 = time.perf_counter()
+    layers = plan_layers(state, plan)
+    (x, sd), served = requests[1][0], answers["seeded B=1"][0]
+    key = seed_key(sd, DRAW_STREAM)
+    with torch.no_grad():
+        k_codes = sw.draw_layers(sw.pack_layers(layers, s), key=key.to(dev))
+        p_codes = plain_seeded(layers, s, *key.tolist(), dev)
+        _max_code_diff(k_codes, p_codes, "serving B=1, seeded draw")
+        calls = []
+
+        def record(real, *args, **kwargs):
+            out = real(*args, **kwargs)
+            calls.append((args, kwargs, out))
+            return out
+
+        with conv_route(record):
+            live(x, sampled_tree(plan, k_codes))
+        check(len(calls) == CONVS_PER_BATCH,
+              f"serving B=1: {len(calls)} convs recorded")
+        for i, (args, kwargs, out) in enumerate(calls):
+            _codes_err(out, ic.int_conv_merged_plain(*args, **kwargs),
+                       f"serving B=1, conv {i} of the forward")
+        del calls
+        with conv_route(lambda _real, *args, **kw:
+                        ic.int_conv_merged_plain(*args, **kw)):
+            plain = live(x, sampled_tree(plan, p_codes))
+        check(torch.equal(served, plain),
+              "serving B=1: the served answer != the plain path's")
+    print(f"serving B=1: the seeded draw == plain (torch Philox + inverse "
+          f"CDF) on the served key, each of the {CONVS_PER_BATCH} convs == "
+          "its plain version on the recorded inputs, the served answer == "
+          f"the plain path's, bitwise ({time.perf_counter() - t0:.2f} s)")
+    del k_codes, p_codes
+    print("serving, ms per call: " + ", ".join(
+        f"{k} {v['ms']:.3f}" for k, v in timing.items()) + "; load s: "
+        + ", ".join(f"{k} {v['load_s']:.3f}" for k, v in timing.items()))
+    return counts, timing
+
+
+DISPATCH_BATCHES, DISPATCH_TURNS, DISPATCH_CALLS = 3, 4, 2000
+
+
+def phase_dispatch(seed, state, model, plan, dev):
+    """What the operators' dispatch adds: a BBB batch (S=100, B=256;
+    one draw and 20 conv operator calls) through the operators, and with
+    the operators replaced by their CUDA implementations called directly,
+    in turns (host clock around DISPATCH_BATCHES batches that end in a
+    synchronise); and host microseconds per call of the conv operator
+    against its CUDA implementation on a tiny conv (DISPATCH_CALLS calls
+    each, then a synchronise). Returns {what: value}."""
+    rng = np.random.default_rng(seed + 103)
+    x = torch.as_tensor(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
+                        device=dev)
+    gen = torch.Generator().manual_seed(seed)
+
+    def batches():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(DISPATCH_BATCHES):
+                aggregate(mc_predict(model, state, x, samples=SAMPLES,
+                                     plan=plan, generator=gen))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / DISPATCH_BATCHES
+
+    @contextlib.contextmanager
+    def direct():
+        ops = (ic.int_conv_merged_op, sw.draw_int8)
+        ic.int_conv_merged_op = lambda *a: ic._merged_cuda(*a)
+        sw.draw_int8 = lambda *a: sw._draw_cuda(*a)
+        try:
+            yield
+        finally:
+            ic.int_conv_merged_op, sw.draw_int8 = ops
+
+    batches()                                     # warm
+    via_ops, via_bodies = [], []
+    for _ in range(DISPATCH_TURNS):
+        _reset_counts()
+        via_ops.append(batches())
+        check(sw.launches == DISPATCH_BATCHES and ic.launches
+              == CONVS_PER_BATCH * DISPATCH_BATCHES, "dispatch: launches")
+        with direct():
+            via_bodies.append(batches())
+    xs = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=dev)
+    ws = torch.zeros((1, 3, 3, 8, 8), dtype=torch.int8, device=dev)
+    q = [torch.tensor(v, device=dev) for v in (0.1, 0.01)] + [
+        torch.tensor(0, dtype=torch.int32, device=dev),
+        torch.tensor(0.2, device=dev),
+        torch.tensor(10, dtype=torch.int32, device=dev)]
+    args = (xs, q[0], ws, q[1], q[2], None, q[3], q[4], 1, 1, 0, 127, False,
+            False, None, None, None, None, False, None)
+
+    def per_call(fn):
+        for _ in range(20):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn(*args)
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / DISPATCH_CALLS
+
+    op_us, body_us = [], []
+    for _ in range(3):
+        op_us.append(per_call(ic.int_conv_merged_op))
+        body_us.append(per_call(ic._merged_cuda))
+    out = {"batch_ms_ops": float(np.median(via_ops)),
+           "batch_ms_direct": float(np.median(via_bodies)),
+           "conv_us_op": float(np.median(op_us)),
+           "conv_us_direct": float(np.median(body_us))}
+    out["batch_ms_added"] = out["batch_ms_ops"] - out["batch_ms_direct"]
+    out["host_ms_added_per_batch"] = (
+        (CONVS_PER_BATCH + 1) * (out["conv_us_op"] - out["conv_us_direct"])
+        / 1e3)
+    print(f"dispatch: BBB batch S={SAMPLES} B={BATCH} through the "
+          f"operators {out['batch_ms_ops']:.3f} ms, their CUDA "
+          f"implementations called directly {out['batch_ms_direct']:.3f} "
+          f"ms (medians of {DISPATCH_TURNS} turns: {via_ops} / "
+          f"{via_bodies}); the conv operator {out['conv_us_op']:.2f} us "
+          f"of host time a call, directly {out['conv_us_direct']:.2f} us: "
+          f"{out['host_ms_added_per_batch']:.3f} ms of host time for a "
+          f"batch's {CONVS_PER_BATCH + 1} calls", flush=True)
+    return out
+
+
+def phase_grid(dev):
+    """`qbn_tpu_torch.sweep` on the card: the pointwise regression tier
+    with --debug (1 epoch), seeds 1 and 2, the float grid and then cell
+    a_7_w_8 of the quant grid from it; each -avg results.json leaf is
+    numpy's nanmean and nanstd over the two seed runs' leaves (strings
+    passed through, n_runs 2); a rerun of both grids skips every DONE
+    cell. Returns seconds per grid."""
+    from qbn_tpu_torch import sweep
+    secs = {}
+    with tempfile.TemporaryDirectory() as out:
+        grids = {"float": ["float"],
+                 "quant": ["quant", "--cells", "a_7_w_8"]}
+        common = ["--methods", "pointwise", "--tiers", "regression",
+                  "--seeds", "1", "2", "--out", out, "--extra", "--device",
+                  dev.type, "--debug", "--epochs", "1"]
+        for what, argv in grids.items():
+            t0 = time.perf_counter()
+            sweep.main(argv + common)
+            secs[what] = time.perf_counter() - t0
+        for cell in ("pointwise-regression", "pointwise-regression-a_7_w_8"):
+            runs = []
+            for sd in (1, 2):
+                with open(os.path.join(out, f"{cell}-seed{sd}",
+                                       "results.json")) as fh:
+                    runs.append(dict(_leaf_items(json.load(fh))))
+            with open(os.path.join(out, f"{cell}-avg", "results.json")) as fh:
+                avg = json.load(fh)
+            check(avg["n_runs"] == 2, f"grid {cell}: n_runs")
+            n = 0
+            for path, v in runs[0].items():
+                got = _at(avg, path)
+                if isinstance(v, str):
+                    check(got == v, f"grid {cell}: {path}")
+                    continue
+                vals = np.asarray([v, runs[1][path]], dtype=np.float64)
+                want = [float(np.nanmean(vals)), float(np.nanstd(vals))]
+                check(all((math.isnan(a) and math.isnan(b)) or a == b
+                          for a, b in zip(got, want)),
+                      f"grid {cell}: {path} {got} != {want}")
+                n += 1
+            print(f"grid {cell}: {n} leaves of the -avg results.json == "
+                  "numpy's nanmean and nanstd over seeds 1 and 2")
+        calls = []
+        real = sweep.run_main
+        sweep.run_main = lambda argv: calls.append(argv) or real(argv)
+        try:
+            t0 = time.perf_counter()
+            for argv in grids.values():
+                sweep.main(argv + common)
+            secs["rerun"] = time.perf_counter() - t0
+        finally:
+            sweep.run_main = real
+        check(not calls, f"grid rerun ran {len(calls)} DONE cells again")
+    print("grid, seconds: " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in secs.items()))
+    return secs
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--f4", action="store_true",
                     help="also evaluate the flagship's protocol 10 more "
                     "times and print each entry's prediction interval")
+    ap.add_argument("--dispatch", action="store_true",
+                    help="also measure what the operators' dispatch adds "
+                    "to a BBB batch (phase dispatch)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3513,6 +3958,15 @@ def main(argv=None) -> int:
             h_counts, h_secs, h_worst = phase_harness(data, dev, args.f4)
         with Phase("run"):
             u_counts, u_secs = phase_run(data, dev)
+    with Phase("serving"):
+        v_counts, v_timing = phase_serving(args.seed, dev)
+        torch.cuda.empty_cache()
+    dispatch = None
+    if args.dispatch:
+        with Phase("dispatch"):
+            dispatch = phase_dispatch(args.seed, state, model, plan, dev)
+    with Phase("grid"):
+        grid_secs = phase_grid(dev)
     with Phase("times"):
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
@@ -3544,6 +3998,12 @@ def main(argv=None) -> int:
         f"{k} {v:.3f}" for k, v in h_worst.items()))
     print("Runner (--debug), seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in u_secs.items()))
+    print("Serving the flagship (S=100), ms per call, load s: " + "; ".join(
+        f"{k} {v['ms']:.3f}, {v['load_s']:.3f}" for k, v in v_timing.items()))
+    if dispatch is not None:
+        print("Operators' dispatch: " + json.dumps(dispatch))
+    print("Grid (--debug), seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in grid_secs.items()))
     resnet_dense = (sum(r_launches.values()) + q_counts["dense"]
                     + u_counts["dense"])
     by_kn = g_counts["dense_by_kn"]
@@ -3551,13 +4011,14 @@ def main(argv=None) -> int:
     print(f"launches on the paths: draw {launches} (main) + "
           f"{q_counts['draw']} (INT after QAT) + {g_counts['draw']} "
           f"(regression INT) + {h_counts['draw']} (harness) + "
-          f"{u_counts['draw']} (runner); dense {dense_launches} "
+          f"{u_counts['draw']} (runner) + {v_counts['draw']} (serving); "
+          f"dense {dense_launches} "
           f"(LeNet) + {sum(r_launches.values())} (ResNet fit) + "
           f"{q_counts['dense']} (QAT) + {g_counts['dense']} (regression, "
           f"by (K, N) {dict(by_kn)}) + {u_counts['dense']} (runner); conv "
           f"{conv_launches} (main) + {q_counts['conv']} (BBB INT after "
           f"QAT) + {h_counts['conv']} (harness) + {u_counts['conv']} "
-          f"(runner), shared weights "
+          f"(runner) + {v_counts['conv']} (serving), shared weights "
           f"{sum(m_launches.values())} (methods) + {q_counts['conv_shared']}"
           f" (INT after QAT) + {s_counts['conv_shared']} (SGHMC ensemble)")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
@@ -3566,7 +4027,8 @@ def main(argv=None) -> int:
         "name": "sample_weights", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (launches + q_counts["draw"] + g_counts["draw"]
-                     + h_counts["draw"] + u_counts["draw"]),
+                     + h_counts["draw"] + u_counts["draw"]
+                     + v_counts["draw"]),
         "max_abs_err": max(max_err, g_counts["draw_err"]), "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
@@ -3596,10 +4058,11 @@ def main(argv=None) -> int:
         "name": "int_conv" + ("" if key == "all" else f"/{key}"),
         "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
         "launches": (conv_launches + q_counts["conv"] + h_counts["conv"]
-                     + u_counts["conv"] if key == "all" else
-                     by_design[key] + q_counts["conv_by_design"][key]
+                     + u_counts["conv"] + v_counts["conv"] if key == "all"
+                     else by_design[key] + q_counts["conv_by_design"][key]
                      + h_counts["conv_by_design"][key]
-                     + u_counts["conv_by_design"][key]),
+                     + u_counts["conv_by_design"][key]
+                     + v_counts["conv_by_design"][key]),
         "max_abs_err": (max(conv_errs.values()) if key == "all" else
                         conv_errs[key]),
         "ms": conv_times[key][0], "plain_ms": conv_times[key][1],

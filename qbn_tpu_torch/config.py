@@ -3,9 +3,9 @@ of qbn_tpu/models/layers.py).
 
 Only the fields that the ported paths read are kept (INT and float
 evaluation, float training with Adam or SGHMC, QAT, the checkpoint
-policy, the data pipeline and the experiment runner); `Config.from_json`
-ignores the other keys of an experiment's config.json (the mesh and
-profiling fields), and `to_json` writes the port's fields. `tpu_fused` keeps
+policy, the data pipeline, the experiment runner and profiling);
+`Config.from_json` ignores the other keys of an experiment's config.json
+(the mesh fields), and `to_json` writes the port's fields. `tpu_fused` keeps
 qbn_tpu's name so that a config.json carries across; in the port it routes
 the BBB local-reparametrisation dense layers through the hand-written CUDA
 kernel of `ops/bbb_dense.py`.
@@ -70,6 +70,10 @@ class Config:
     save_last: bool = True                # else: save on best validation
     report_freq: int = 50
     tpu_fused: bool = False               # BBB dense through the CUDA kernel
+    # profiling (profiling.py)
+    debug_nans: bool = False              # raise on the first non-finite
+    #                                       module output (and backward)
+    profile: bool = False                 # torch.profiler trace of training
 
     @classmethod
     def from_json(cls, path: str) -> "Config":

@@ -92,15 +92,17 @@ def plan_layers(state, plan):
 
 def draw_sampled_weights(state, plan, samples: int,
                          generator: Optional[torch.Generator] = None,
-                         noise: Optional[Sequence[torch.Tensor]] = None):
+                         noise: Optional[Sequence[torch.Tensor]] = None,
+                         key: Optional[torch.Tensor] = None):
     """Bulk posterior draw following a presample_plan, in one kernel
     launch on the card. Returns the 'sampled' tree: a 'w' leaf of shape
     (S, *w_codes.shape) int8 beside each block's 'q' entry.
 
-    noise (testing): one (S, *w_codes.shape) float32 tensor per plan
-    entry."""
+    key: the draw's (seed, offset), an int64 tensor of 2 (else drawn
+    from `generator`); noise (testing): one (S, *w_codes.shape) float32
+    tensor per plan entry."""
     codes = draw_layers(pack_layers(plan_layers(state, plan), samples),
-                        generator, noise)
+                        generator, noise, key)
     return sampled_tree(plan, codes)
 
 
@@ -149,13 +151,13 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
     * pointwise: one forward, its output repeated S times (qbn_tpu runs
       the same deterministic forward under S keys).
 
-    mode 'float' (a float state): `float_predict`, with `noise` (BBB)
-    and `masks` (MC-Dropout) as its sources, else drawn from
-    `generator`."""
-    if mode == "float":
+    mode 'float' (a float state) or 'qat' (a QAT state, its fake-quant
+    eval forward): `float_predict`, with `noise` (BBB) and `masks`
+    (MC-Dropout) as its sources, else drawn from `generator`."""
+    if mode in ("float", "qat"):
         return float_predict(model, state, x, samples=samples,
                              generator=generator, ensemble=ensemble,
-                             noise=noise, masks=masks)
+                             noise=noise, masks=masks, mode=mode)
     if mode != "int":
         raise ValueError(f"unknown mode '{mode}'")
     if ensemble:
@@ -193,16 +195,18 @@ def _stack(outs):
 
 def float_predict(model, state, x, *, samples: int,
                   generator: Optional[torch.Generator] = None,
-                  ensemble: bool = False, noise=None, masks=None):
+                  ensemble: bool = False, noise=None, masks=None,
+                  mode: str = "float"):
     """Float MC predictive outputs with the sample axis in front: (S, B,
     classes), or (mu, var), (S, B, out) each. One eval forward (train
     False: batch norm's running statistics, one weight draw or mask per
     layer) per sample: per member with `ensemble`; for a stochastic model
     or one with dropout sites, S forwards drawing anew from `noise` and
     `masks` (sources of ops/stochastic.py; by default from `generator`),
-    sample by sample; else one forward repeated S times."""
+    sample by sample; else one forward repeated S times. mode 'qat':
+    the same with the fake-quantised eval forward."""
     def forward(variables):
-        return model(x, variables, mode="float", train=False, noise=noise,
+        return model(x, variables, mode=mode, train=False, noise=noise,
                      masks=masks)
 
     if noise is None:

@@ -41,10 +41,16 @@ name them.
 With `tpu_fused=True` every Bayes-by-backprop dense layer's training
 forward (the LeNet's fc_0 and fc_1, the ResNet's fc, the MLP's five
 layers) runs the CUDA kernel of `ops/bbb_dense.py`.
+
+cfg.debug_nans turns on `profiling.nan_debugging` for `train_loop` (the
+first non-finite module output raises, naming the module; the mode ends
+with the loop); cfg.profile writes a torch.profiler trace of
+`train_loop` to <save_dir>/profile/trace.json.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -65,6 +71,7 @@ from qbn_tpu_torch.evaluation.results import init_results, save_results
 from qbn_tpu_torch.evaluation.writer import ScalarWriter
 from qbn_tpu_torch.models.factory import build_model, load_state
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
+from qbn_tpu_torch.profiling import nan_debugging, trace
 from qbn_tpu_torch.training.checkpoint import (
     checkpoint_path, list_snapshots, merge, read_checkpoint, save_variables)
 from qbn_tpu_torch.training.optim import build_optimizer
@@ -135,8 +142,12 @@ def fit(cfg: Config, train_batches, valid_batches=None, device="cuda",
                       masks=BernoulliMasks(generator, 1), writer=writer)
     state = trainer.init_state(variables)
     try:
-        state, _best = trainer.train_loop(state, train_batches,
-                                          valid_batches, special_info)
+        with trace(os.path.join(save_dir, "profile") if save_dir else None,
+                   enabled=cfg.profile), \
+                (nan_debugging(model) if cfg.debug_nans
+                 else contextlib.nullcontext()):
+            state, _best = trainer.train_loop(state, train_batches,
+                                              valid_batches, special_info)
     finally:
         if writer is not None:
             writer.close()

@@ -17,10 +17,11 @@ Requantisation then runs in qbn_tpu's order: + bias, / out_scale, round
 half to even, + out_zp, clip to 0..255, quantised ReLU (max with out_zp),
 the sub-8-bit clip, - out_zp.
 
-On a CUDA tensor `int_conv_merged`, `int_conv`, `mc_group_conv` and
-`int_conv_sums` launch the hand-written kernel of `csrc/int_conv.cu` (an
-int8 implicit GEMM on the tensor cores with exact int32 sums) or raise;
-there is no fallback. The kernel addresses activations and outputs by
+Each of `int_conv_merged`, `int_conv`, `mc_group_conv` and `int_conv_sums`
+calls its operator (`qbn_tpu_torch::<name>`, ops/library.py). On a CUDA
+tensor the operator launches the hand-written kernel of `csrc/int_conv.cu`
+(an int8 implicit GEMM on the tensor cores with exact int32 sums) or
+raises; there is no fallback. The kernel addresses activations and outputs by
 (batch, row, column, sample) strides and weights by a sample stride: K *
 cout for per-sample weights (Bayes-by-backprop), 0 for one set shared by
 every sample (`int_conv`: MC-Dropout, pointwise, an ensemble member; or
@@ -55,7 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qbn_tpu_torch.ops import _build
+from qbn_tpu_torch.ops import _build, library
 
 _CENTERED_K = (1 << 24) // (254 * 127)           # 520
 _MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
@@ -719,6 +720,95 @@ def _per_sample(w_codes, x_codes, shared_x):
                           *w_codes.shape)
 
 
+# -- the operators ----------------------------------------------------------
+#
+# Each entry below converts its Python qparams to tensors and its strides
+# and padding to ints, and calls its operator; the operator's CPU
+# implementation runs the plain version, its CUDA implementation checks the
+# operands, plans and launches the kernel (`_launch`: the pointers, the
+# alignments and the SM count are read there, on real tensors).
+
+def _as_scale(v, dev):
+    return v if isinstance(v, torch.Tensor) else \
+        torch.as_tensor(v, device=dev).to(torch.float32)
+
+
+def _as_zp(v, dev):
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(v, device=dev)
+
+
+def _as_qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp):
+    return (_as_scale(x_scale, dev), _as_scale(w_scale, dev),
+            _as_zp(w_zp, dev), _as_scale(out_scale, dev), _as_zp(out_zp, dev))
+
+
+def _pair(stride, pad):
+    return (stride, stride), ((pad, pad), (pad, pad))
+
+
+def _merged_out_shape(x_codes, w_codes, stride, pad, shared_x):
+    kh, kw, cin, cout = w_codes.shape[-4:]
+    b, h, wd, c = x_codes.shape
+    s = w_codes.shape[0] if w_codes.ndim == 5 else c // cin
+    return (b, *_out_hw(h, wd, kh, kw, stride, pad), s, cout)
+
+
+def _merged_cpu(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                out_zp, stride, pad, a_lo, a_hi, relu, shared_x, residual,
+                res_scale, res_out_scale, res_out_zp, res_relu, design):
+    q = _qparams(x_codes.device, x_scale, w_scale, w_zp, out_scale, out_zp,
+                 *((res_scale, res_out_scale, res_out_zp)
+                   if residual is not None else ()))
+    return int_conv_merged_plain(
+        x_codes, q["x_scale"], _per_sample(w_codes, x_codes, shared_x),
+        q["w_scale"], q["w_zp"], bias, q["out_scale"], q["out_zp"],
+        *_pair(stride, pad), a_lo, a_hi, relu, shared_x, residual,
+        q.get("res_scale"), q.get("res_out_scale"), q.get("res_out_zp"),
+        res_relu)
+
+
+def _merged_cuda(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                 out_zp, stride, pad, a_lo, a_hi, relu, shared_x, residual,
+                 res_scale, res_out_scale, res_out_zp, res_relu, design):
+    dev = x_codes.device
+    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp,
+                 *((res_scale, res_out_scale, res_out_zp)
+                   if residual is not None else ()))
+    _stride, _pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
+        x_codes, w_codes, *_pair(stride, pad), shared_x)
+    cout = w_codes.shape[-1]
+    b = x_shape[0]
+    if bias is not None:
+        _check(bias, torch.float32, "bias", (cout,), dev)
+    if residual is not None:
+        _check(residual, torch.int8, "residual", (b, ho, wo, s * cout), dev)
+    out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
+    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
+            out, (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
+            residual, relu, res_relu, a_lo, a_hi, design=design)
+    return out
+
+
+def _merged_fake(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                 out_zp, stride, pad, a_lo, a_hi, relu, shared_x, residual,
+                 res_scale, res_out_scale, res_out_zp, res_relu, design):
+    b, ho, wo, s, cout = _merged_out_shape(x_codes, w_codes, stride, pad,
+                                           shared_x)
+    return x_codes.new_empty((b, ho, wo, s * cout))
+
+
+_QP_SCHEMA = ("Tensor x_scale, Tensor w, Tensor w_scale, Tensor w_zp, "
+              "Tensor? bias, Tensor out_scale, Tensor out_zp, int stride, "
+              "int pad, int a_lo, int a_hi, bool relu")
+
+int_conv_merged_op = library.define(
+    "int_conv_merged",
+    f"(Tensor x, {_QP_SCHEMA}, bool shared_x, Tensor? residual, "
+    "Tensor? res_scale, Tensor? res_out_scale, Tensor? res_out_zp, "
+    "bool res_relu, str? design) -> Tensor",
+    _merged_cpu, _merged_cuda, _merged_fake)
+
+
 def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
                     out_scale, out_zp, strides, padding,
                     a_lo: int, a_hi: int, relu: bool = False,
@@ -738,33 +828,19 @@ def int_conv_merged(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
       res_out_scale/zp, optional ReLU) then follows the conv's requant.
     _design: private, for comparing the kernel's two bodies (see
       `_launch`); the main path never passes it.
-    Returns (B, H', W', S*cout) int8 codes.
+    Returns (B, H', W', S*cout) int8 codes, from the operator
+    `qbn_tpu_torch::int_conv_merged`.
     """
     dev = x_codes.device
-    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp,
-                 *((res_scale, res_out_scale, res_out_zp)
-                   if residual is not None else ()))
-    if dev.type == "cpu":
-        return int_conv_merged_plain(
-            x_codes, q["x_scale"], _per_sample(w_codes, x_codes, shared_x),
-            q["w_scale"], q["w_zp"], bias, q["out_scale"], q["out_zp"],
-            strides, padding, a_lo, a_hi, relu, shared_x, residual,
-            q.get("res_scale"), q.get("res_out_scale"), q.get("res_out_zp"),
-            res_relu)
-
-    stride, pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
-        x_codes, w_codes, strides, padding, shared_x)
-    cout = w_codes.shape[-1]
-    b = x_shape[0]
-    if bias is not None:
-        _check(bias, torch.float32, "bias", (cout,), dev)
-    if residual is not None:
-        _check(residual, torch.int8, "residual", (b, ho, wo, s * cout), dev)
-    out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
-            out, (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
-            residual, relu, res_relu, a_lo, a_hi, design=_design)
-    return out
+    res = ((_as_scale(res_scale, dev), _as_scale(res_out_scale, dev),
+            _as_zp(res_out_zp, dev)) if residual is not None
+           else (None, None, None))
+    xs, ws, wz, os_, oz = _as_qparams(dev, x_scale, w_scale, w_zp, out_scale,
+                                      out_zp)
+    return int_conv_merged_op(
+        x_codes, xs, w_codes, ws, wz, bias, os_, oz, _strides(strides),
+        _padding(padding), int(a_lo), int(a_hi), bool(relu), bool(shared_x),
+        residual, *res, bool(res_relu), _design)
 
 
 def int_conv_plain(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
@@ -781,13 +857,56 @@ def int_conv_plain(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
     return out.reshape(*lead, *out.shape[1:])
 
 
+def _shared_cpu(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                out_zp, stride, pad, a_lo, a_hi, relu, design):
+    q = _qparams(x_codes.device, x_scale, w_scale, w_zp, out_scale, out_zp)
+    return int_conv_plain(x_codes, q["x_scale"], w_codes, q["w_scale"],
+                          q["w_zp"], bias, q["out_scale"], q["out_zp"],
+                          *_pair(stride, pad), a_lo, a_hi, relu)
+
+
+def _shared_cuda(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                 out_zp, stride, pad, a_lo, a_hi, relu, design):
+    dev = x_codes.device
+    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
+    kh, kw, cin, cout = w_codes.shape
+    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
+    lead = tuple(x_codes.shape[:-3])
+    b, h, wd = x_codes.shape[-4:-1]
+    _check(x_codes, torch.int8, "x_codes", (*lead, h, wd, cin), dev)
+    if bias is not None:
+        _check(bias, torch.float32, "bias", (cout,), dev)
+    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
+    s = lead[0] if x_codes.ndim == 5 else 1
+    out = torch.empty((*lead, ho, wo, cout), dtype=torch.int8, device=dev)
+    _launch(x_codes, _sample_strides(b, h, wd, cin), (b, h, wd, cin),
+            w_codes, s, stride, pad, (ho, wo), out,
+            (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
+            None, relu, False, a_lo, a_hi, design=design)
+    return out
+
+
+def _shared_fake(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                 out_zp, stride, pad, a_lo, a_hi, relu, design):
+    kh, kw, _cin, cout = w_codes.shape
+    h, wd = x_codes.shape[-3:-1]
+    return x_codes.new_empty((*x_codes.shape[:-3],
+                              *_out_hw(h, wd, kh, kw, stride, pad), cout))
+
+
+int_conv_op = library.define(
+    "int_conv", f"(Tensor x, {_QP_SCHEMA}, str? design) -> Tensor",
+    _shared_cpu, _shared_cuda, _shared_fake)
+
+
 def int_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
              out_zp, strides, padding, a_lo: int, a_hi: int,
              relu: bool = False, _design=None):
     """Quantised conv with ONE set of weights for every sample (port of
     qbn_tpu/ops/integer.py int_conv, with _conv_core's rules for a shared
     input and for per-sample activations with shared weights): MC-Dropout,
-    pointwise and each member of an ensemble.
+    pointwise and each member of an ensemble; the operator
+    `qbn_tpu_torch::int_conv`.
 
     x_codes: (S, B, H, W, cin) int8 codes of S samples (masked
       activations), or (B, H, W, cin) of one (computed once, as qbn_tpu's
@@ -801,31 +920,58 @@ def int_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
     grid's 65535 pixel tiles at B=256, S=100 (`launch_grid`). Input
     without a sample axis is one sample (S=1), so that it takes the
     per-sample plans (the halo body for the 3x3 convs)."""
-    dev = x_codes.device
-    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
     if x_codes.ndim not in (4, 5) or w_codes.ndim != 4:
         raise ValueError("x_codes must be (S, B, H, W, cin) or (B, H, W, "
                          "cin), w_codes (kh, kw, cin, cout)")
-    if dev.type == "cpu":
-        return int_conv_plain(x_codes, q["x_scale"], w_codes, q["w_scale"],
-                              q["w_zp"], bias, q["out_scale"], q["out_zp"],
-                              strides, padding, a_lo, a_hi, relu)
-    kh, kw, cin, cout = w_codes.shape
+    xs, ws, wz, os_, oz = _as_qparams(x_codes.device, x_scale, w_scale, w_zp,
+                                      out_scale, out_zp)
+    return int_conv_op(x_codes, xs, w_codes, ws, wz, bias, os_, oz,
+                       _strides(strides), _padding(padding), int(a_lo),
+                       int(a_hi), bool(relu), _design)
+
+
+def _group_cpu(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+               out_zp, stride, pad, a_lo, a_hi, relu, design):
+    s, b, h, wd, _c = x_codes.shape
+    cout = w_codes.shape[-1]
+    xm = x_codes.permute(1, 2, 3, 0, 4).reshape(b, h, wd, s * x_codes.shape[4])
+    out = _merged_cpu(xm, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                      out_zp, stride, pad, a_lo, a_hi, relu, False, None,
+                      None, None, None, False, design)
+    ho, wo = out.shape[1:3]
+    return out.reshape(b, ho, wo, s, cout).permute(3, 0, 1, 2, 4).contiguous()
+
+
+def _group_cuda(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                out_zp, stride, pad, a_lo, a_hi, relu, design):
+    dev = x_codes.device
+    s, kh, kw, cin, cout = w_codes.shape
+    _s, b, h, wd, _c = x_codes.shape
+    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
     _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
-    lead = tuple(x_codes.shape[:-3])
-    b, h, wd = x_codes.shape[-4:-1]
-    _check(x_codes, torch.int8, "x_codes", (*lead, h, wd, cin), dev)
+    _check(x_codes, torch.int8, "x_codes", (s, b, h, wd, cin), dev)
     if bias is not None:
         _check(bias, torch.float32, "bias", (cout,), dev)
-    stride, pad = _strides(strides), _padding(padding)
     ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
-    s = lead[0] if x_codes.ndim == 5 else 1
-    out = torch.empty((*lead, ho, wo, cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, _sample_strides(b, h, wd, cin), (b, h, wd, cin),
-            w_codes, s, stride, pad, (ho, wo), out,
+    out = torch.empty((s, b, ho, wo, cout), dtype=torch.int8, device=dev)
+    _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
+            (b, h, wd, cin), w_codes, s, stride, pad, (ho, wo), out,
             (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
-            None, relu, False, a_lo, a_hi, design=_design)
+            None, relu, False, a_lo, a_hi, design=design)
     return out
+
+
+def _group_fake(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
+                out_zp, stride, pad, a_lo, a_hi, relu, design):
+    s, kh, kw, _cin, cout = w_codes.shape
+    _s, b, h, wd, _c = x_codes.shape
+    return x_codes.new_empty((s, b, *_out_hw(h, wd, kh, kw, stride, pad),
+                              cout))
+
+
+mc_group_conv_op = library.define(
+    "mc_group_conv", f"(Tensor x, {_QP_SCHEMA}, str? design) -> Tensor",
+    _group_cpu, _group_cuda, _group_fake)
 
 
 def mc_group_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
@@ -834,37 +980,51 @@ def mc_group_conv(x_codes, x_scale, w_codes, w_scale, w_zp, bias,
                   _design=None):
     """Per-sample int8 conv in K3's layout: (S, B, H, W, cin) x
     (S, kh, kw, cin, cout) -> (S, B, H', W', cout) int8 codes, with
-    int_conv_merged's epilogue. padding defaults to kh // 2 on each side
-    (qbn_tpu's mc_group_conv is the 3x3, stride-1, pad-1 case)."""
-    s, kh, kw, cin, cout = w_codes.shape
+    int_conv_merged's epilogue (the operator
+    `qbn_tpu_torch::mc_group_conv`). padding defaults to kh // 2 on each
+    side (qbn_tpu's mc_group_conv is the 3x3, stride-1, pad-1 case)."""
+    s, kh = w_codes.shape[:2]
     if padding is None:
         padding = ((kh // 2, kh // 2), (kh // 2, kh // 2))
-    dev = x_codes.device
     if x_codes.ndim != 5 or x_codes.shape[0] != s:
         raise ValueError("x_codes must be (S, B, H, W, cin)")
-    _s, b, h, wd, _c = x_codes.shape
-    if dev.type == "cpu":
-        xm = x_codes.permute(1, 2, 3, 0, 4).reshape(b, h, wd, s * cin)
-        out = int_conv_merged(xm, x_scale, w_codes, w_scale, w_zp, bias,
-                              out_scale, out_zp, strides, padding, a_lo, a_hi,
-                              relu)
-        ho, wo = out.shape[1:3]
-        return out.reshape(b, ho, wo, s, cout).permute(3, 0, 1, 2, 4) \
-            .contiguous()
+    xs, ws, wz, os_, oz = _as_qparams(x_codes.device, x_scale, w_scale, w_zp,
+                                      out_scale, out_zp)
+    return mc_group_conv_op(x_codes, xs, w_codes, ws, wz, bias, os_, oz,
+                            _strides(strides), _padding(padding), int(a_lo),
+                            int(a_hi), bool(relu), _design)
 
-    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
-    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
-    _check(x_codes, torch.int8, "x_codes", (s, b, h, wd, cin), dev)
-    if bias is not None:
-        _check(bias, torch.float32, "bias", (cout,), dev)
-    stride, pad = _strides(strides), _padding(padding)
-    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
-    out = torch.empty((s, b, ho, wo, cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
-            (b, h, wd, cin), w_codes, s, stride, pad, (ho, wo), out,
-            (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
-            None, relu, False, a_lo, a_hi, design=_design)
-    return out
+
+def _sums_cpu(x_codes, w_codes, stride, pad, shared_x, design):
+    return int_conv_sums_plain(
+        x_codes, _per_sample(w_codes, x_codes, shared_x), *_pair(stride, pad),
+        shared_x)
+
+
+def _sums_cuda(x_codes, w_codes, stride, pad, shared_x, design):
+    _stride, _pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
+        x_codes, w_codes, *_pair(stride, pad), shared_x)
+    b, cout = x_shape[0], w_codes.shape[-1]
+    dev = x_codes.device
+    acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
+    win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
+    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
+            None, (0, 0, 0, 0), raw=(acc, win), design=design)
+    return acc, win
+
+
+def _sums_fake(x_codes, w_codes, stride, pad, shared_x, design):
+    b, ho, wo, s, cout = _merged_out_shape(x_codes, w_codes, stride, pad,
+                                           shared_x)
+    return (x_codes.new_empty((b, ho, wo, s, cout), dtype=torch.int32),
+            x_codes.new_empty((b, ho, wo, s), dtype=torch.int32))
+
+
+int_conv_sums_op = library.define(
+    "int_conv_sums",
+    "(Tensor x, Tensor w, int stride, int pad, bool shared_x, str? design) "
+    "-> (Tensor, Tensor)",
+    _sums_cpu, _sums_cuda, _sums_fake)
 
 
 def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False,
@@ -872,20 +1032,10 @@ def int_conv_sums(x_codes, w_codes, strides, padding, shared_x: bool = False,
     """The raw sums that int_conv_merged's epilogue starts from, for
     checking: (acc (B, H', W', S, cout), winsum (B, H', W', S)) int32, acc
     the conv of the codes with the weight codes (no zero point), winsum the
-    window sum of each sample's activations."""
-    if x_codes.device.type == "cpu":
-        return int_conv_sums_plain(
-            x_codes, _per_sample(w_codes, x_codes, shared_x), strides,
-            padding, shared_x)
-    stride, pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
-        x_codes, w_codes, strides, padding, shared_x)
-    b, cout = x_shape[0], w_codes.shape[-1]
-    dev = x_codes.device
-    acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
-    win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
-    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
-            None, (0, 0, 0, 0), raw=(acc, win), design=_design)
-    return acc, win
+    window sum of each sample's activations (the operator
+    `qbn_tpu_torch::int_conv_sums`)."""
+    return int_conv_sums_op(x_codes, w_codes, _strides(strides),
+                            _padding(padding), bool(shared_x), _design)
 
 
 def merged_plan(x_codes, w_codes, strides, padding, shared_x: bool = False):

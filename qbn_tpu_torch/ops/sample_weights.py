@@ -13,8 +13,11 @@ the caller's `torch.Generator`. The bits are a function of (seed, offset,
 layer index in the pack, element index in the layer's (S, *shape)
 block), so the CPU and the card draw the same codes.
 
-On a CPU tensor the wrapper runs the plain version. On a CUDA tensor it
-launches the kernel or raises: there is no fallback.
+The draw is the operator `qbn_tpu_torch::draw_int8` (ops/library.py),
+which `draw_layers` calls: on CPU tensors it runs the plain version, on
+CUDA tensors it launches the kernel or raises: there is no fallback. Its
+seed and offset come in an int64 tensor, read inside the operator, so
+that a traced forward's draw follows the tensor.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from qbn_tpu_torch.ops import _build
+from qbn_tpu_torch.ops import _build, library
 from qbn_tpu_torch.quant.bounds import NOISE_SCALE
 
 QPARAM_KEYS = ("w_scale", "w_zp", "std_scale", "std_zp", "mul_scale",
@@ -286,7 +289,6 @@ class LayerPack:
     samples: int
     total: int          # output elements, padding included
     tiles: int
-    layers: list        # the (w, std, qparams, w_lo, w_hi) given
 
 
 def _round_up(v: int, m: int) -> int:
@@ -337,7 +339,7 @@ def pack_layers(layers: Sequence, samples: int) -> LayerPack:
         meta=torch.tensor(rows, dtype=torch.int64, device=dev),
         tile_layer=torch.tensor(tile_layer, dtype=torch.int32, device=dev),
         shapes=shapes, dst=dst_offs, samples=samples, total=dst,
-        tiles=len(tile_layer), layers=list(layers))
+        tiles=len(tile_layer))
 
 
 # -- the kernel -----------------------------------------------------------
@@ -367,70 +369,105 @@ def _check(t: torch.Tensor, dtype, name: str, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def seed_offset(generator: Optional[torch.Generator] = None):
-    """The (seed, offset) of one seeded draw, taken from `generator` (the
-    default generator of the CPU when None)."""
+def key_from_generator(generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """The (seed, offset) of one seeded draw as an int64 tensor of 2,
+    drawn from `generator` (the default generator of the CPU when None),
+    on the generator's device."""
     gen_dev = generator.device if generator is not None else "cpu"
-    seed, offset = torch.randint(0, 2 ** 62, (2,), generator=generator,
-                                 device=gen_dev).tolist()
-    return seed, offset
+    return torch.randint(0, 2 ** 62, (2,), generator=generator,
+                         device=gen_dev)
+
+
+def _draw_cpu(w, std, qtab, meta, tile_layer, key, noise, total):
+    """The plain draw of every layer of a pack: layer by layer from its
+    rows of `meta` and `qtab`, the seeded normals from (seed, offset) =
+    `key`, or the layer's slice of the flat `noise`."""
+    seed, offset = (int(v) for v in key.tolist())
+    flat = torch.zeros(total, dtype=torch.int8)
+    for li, row in enumerate(meta.tolist()):
+        _tile, _items, dst, src, n, s, lo, hi = row
+        qp = dict(zip(QPARAM_KEYS, qtab[li]))
+        eps = (noise[dst:dst + s * n].reshape(s, n) if noise is not None
+               else seeded_noise(seed, offset, li, (s, n)))
+        flat[dst:dst + s * n] = sample_weights_plain(
+            w[src:src + n], std[src:src + n], qp, eps, lo, hi).reshape(-1)
+    return flat
+
+
+def _draw_cuda(w, std, qtab, meta, tile_layer, key, noise, total):
+    """One launch of the draw kernel over the pack; raises if it fails."""
+    global launches
+    dev = w.device
+    for t, dt, name in ((w, torch.int8, "w"), (std, torch.int8, "std"),
+                        (qtab, torch.float32, "qtab"),
+                        (meta, torch.int64, "meta"),
+                        (tile_layer, torch.int32, "tile_layer")):
+        _check(t, dt, name, dev)
+    seed = offset = 0
+    noise_ptr = table_ptr = None
+    if noise is not None:
+        _check(noise, torch.float32, "noise", dev)
+        noise_ptr = noise.data_ptr()
+    else:
+        seed, offset = (int(v) for v in key.tolist())
+        table_ptr = icdf_table(dev).data_ptr()
+    flat = torch.empty(total, dtype=torch.int8, device=dev)
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(w.data_ptr(), std.data_ptr(), qtab.data_ptr(),
+                 meta.data_ptr(), tile_layer.data_ptr(), tile_layer.numel(),
+                 noise_ptr, table_ptr, seed, offset, flat.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"qbn_draw_int8 launch failed: cudaError {err}")
+    launches += 1
+    return flat
+
+
+def _draw_fake(w, std, qtab, meta, tile_layer, key, noise, total):
+    return w.new_empty((total,), dtype=torch.int8)
+
+
+# the draw of a whole pack: the flat int8 output (layer l's (S, *shape_l)
+# block at dst_l), from the pack's tensors and the (seed, offset) in `key`
+# (int64, 2), or from `noise` (float32, laid out as the output)
+draw_int8 = library.define(
+    "draw_int8",
+    "(Tensor w, Tensor std, Tensor qtab, Tensor meta, Tensor tile_layer, "
+    "Tensor key, Tensor? noise, SymInt total) -> Tensor",
+    _draw_cpu, _draw_cuda, _draw_fake)
 
 
 def draw_layers(pack: LayerPack, generator: Optional[torch.Generator] = None,
-                noise: Optional[Sequence[torch.Tensor]] = None
-                ) -> List[torch.Tensor]:
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                key: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """S int8 samples of every layer of `pack`: a list of (S, *shape_l)
-    tensors, in layer order.
+    tensors, in layer order, from ONE call of the `draw_int8` operator.
 
     noise (testing): one (S, *shape_l) float32 tensor per layer; otherwise
-    the seeded inverse-CDF normals, their seed and offset drawn from
-    `generator` (the default generator of the CPU when None)."""
-    global launches
+    the seeded inverse-CDF normals, their seed and offset the int64 pair
+    `key`, or drawn from `generator` (the default generator of the CPU
+    when None)."""
     s = pack.samples
-    if noise is not None and len(noise) != len(pack.shapes):
-        raise ValueError("noise needs one tensor per layer")
-    seed = offset = 0
-    if noise is None:
-        seed, offset = seed_offset(generator)
-    if pack.w.device.type == "cpu":
-        out = []
-        for i, (w, std, qp, lo, hi) in enumerate(pack.layers):
-            shape = (s,) + tuple(w.shape)
-            eps = (noise[i] if noise is not None else
-                   seeded_noise(seed, offset, i, shape))
-            out.append(sample_weights_plain(w, std, qp, eps, lo, hi))
-        return out
-
     dev = pack.w.device
-    for t, dt, name in ((pack.w, torch.int8, "w"),
-                        (pack.std, torch.int8, "std"),
-                        (pack.qtab, torch.float32, "qtab"),
-                        (pack.meta, torch.int64, "meta"),
-                        (pack.tile_layer, torch.int32, "tile_layer")):
-        _check(t, dt, name, dev)
-    noise_ptr = table_ptr = None
+    noise_buf = None
     if noise is not None:
+        if len(noise) != len(pack.shapes):
+            raise ValueError("noise needs one tensor per layer")
         noise_buf = torch.zeros(pack.total, dtype=torch.float32, device=dev)
         for t, d, sh in zip(noise, pack.dst, pack.shapes):
             if tuple(t.shape) != (s,) + sh:
                 raise ValueError(f"noise shape {tuple(t.shape)} != "
                                  f"{(s,) + sh}")
-            _check(t, torch.float32, "noise", dev)
+            if dev.type != "cpu":
+                _check(t, torch.float32, "noise", dev)
             noise_buf[d:d + t.numel()] = t.reshape(-1)
-        noise_ptr = noise_buf.data_ptr()
-    else:
-        table_ptr = icdf_table(dev).data_ptr()
-    flat = torch.empty(pack.total, dtype=torch.int8, device=dev)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pack.w.data_ptr(), pack.std.data_ptr(), pack.qtab.data_ptr(),
-                 pack.meta.data_ptr(), pack.tile_layer.data_ptr(),
-                 pack.tiles, noise_ptr, table_ptr, seed, offset,
-                 flat.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"qbn_draw_int8 launch failed: cudaError {err}")
-    launches += 1
+        key = torch.zeros(2, dtype=torch.int64)
+    elif key is None:
+        key = key_from_generator(generator)
+    flat = draw_int8(pack.w, pack.std, pack.qtab, pack.meta, pack.tile_layer,
+                     key, noise_buf, pack.total)
     return _unpack(pack, flat)
 
 

@@ -10,17 +10,22 @@ them. `GeneratorNoise` wraps a torch.Generator (the main path);
 `QueueNoise` hands out given arrays in call order (tests feed it the
 normals that a qbn_tpu run receives). MC-Dropout's masks come from a
 mask source in the same way: `BernoulliMasks` (a torch.Generator) or
-`QueueMasks` (given masks, in call order).
+`QueueMasks` (given masks, in call order). `SeedNoise` and `SeedMasks`
+draw from a key tensor (seed, offset) through the operator
+`qbn_tpu_torch::seeded_draw`, so that an exported predictor's draws follow
+its `seed` input.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from qbn_tpu_torch.ops import library
 from qbn_tpu_torch.ops.bbb_dense import VAR_EPS, bbb_dense
 
 
@@ -94,6 +99,68 @@ class QueueMasks:
             raise ValueError(f"queued mask has shape {tuple(mask.shape)}, "
                              f"the site asks for (S, *{tuple(shape)})")
         return mask.to(device=device, dtype=torch.float32)
+
+
+def _seeded_draw(key, stream, shape, normal):
+    """Standard normals (or uniforms in [0, 1)) of `shape` from a
+    torch.Generator on the key's device seeded with a 64-bit digest of
+    (seed, offset, stream); the generator lives only here."""
+    seed, offset = key.tolist()
+    digest = hashlib.blake2b(f"{seed}/{offset}/{stream}".encode(),
+                             digest_size=8).digest()
+    g = torch.Generator(device=key.device).manual_seed(
+        int.from_bytes(digest, "little"))
+    draw = torch.randn if normal else torch.rand
+    return draw(tuple(shape), generator=g, device=key.device)
+
+
+def _seeded_draw_fake(key, stream, shape, normal):
+    return key.new_empty(tuple(shape), dtype=torch.float32)
+
+
+# a draw from the key tensor (seed, offset): the random source of an
+# exported predictor's dropout masks and float weight noise, whose key
+# follows the predictor's `seed` input
+seeded_draw = library.define(
+    "seeded_draw", "(Tensor key, int stream, SymInt[] shape, bool normal) "
+    "-> Tensor", _seeded_draw, _seeded_draw, _seeded_draw_fake)
+
+
+class _Seeded:
+    """Draws from the int64 pair key = (seed, offset), one
+    `qbn_tpu_torch::seeded_draw` stream per draw in call order: the values
+    depend on the key, the draw's place in call order and the device.
+    The key is a tensor, read on the host only inside the operator, so
+    that an exported forward keeps it as an input."""
+
+    def __init__(self, key: torch.Tensor):
+        self.key, self.calls = key, 0
+
+    def _draw(self, shape, device, normal):
+        out = seeded_draw(self.key.to(device), self.calls, list(shape),
+                          normal)
+        self.calls += 1
+        return out
+
+
+class SeedNoise(_Seeded):
+    """Standard normals from a key, one stream per draw."""
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        return self._draw(tuple(shape), device, True)
+
+
+class SeedMasks(_Seeded):
+    """MC-Dropout keep masks from a key, one stream per dropout site:
+    (samples, *shape) float32, 1 where the uniform is below keep."""
+
+    def __init__(self, key: torch.Tensor, samples: int):
+        super().__init__(key)
+        self.samples = samples
+
+    def __call__(self, shape, keep: float, device) -> torch.Tensor:
+        u = self._draw((self.samples, *shape), device, False)
+        return (u < keep).to(torch.float32)
 
 
 def softplus(x):

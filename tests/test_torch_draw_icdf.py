@@ -209,7 +209,8 @@ def test_cpu_seeded_draw_is_the_plain_chain_on_icdf_normals():
     rng = np.random.default_rng(2)
     layers = [_layer(rng, (3, 3, 3, 24)), _layer(rng, (48, 10), -8, 7)]
     got = _draw(layers, 5, 11)
-    seed, offset = sw.seed_offset(torch.Generator().manual_seed(11))
+    seed, offset = sw.key_from_generator(
+        torch.Generator().manual_seed(11)).tolist()
     for i, ((w, std, qp, lo, hi), g) in enumerate(zip(layers, got)):
         x = sw.seeded_noise(seed, offset, i, (5,) + tuple(w.shape))
         assert torch.equal(g, sw.sample_weights_plain(w, std, qp, x, lo, hi))

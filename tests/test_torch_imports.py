@@ -48,7 +48,14 @@ def test_new_sources_scanned():
                 "qbn_tpu_torch/training/optim.py",
                 "qbn_tpu_torch/training/trainer.py",
                 "qbn_tpu_torch/training/losses.py",
-                "qbn_tpu_torch/presets.py"):
+                "qbn_tpu_torch/presets.py",
+                "qbn_tpu_torch/ops/library.py",
+                "qbn_tpu_torch/serving/__init__.py",
+                "qbn_tpu_torch/serving/export.py",
+                "qbn_tpu_torch/serving/__main__.py",
+                "qbn_tpu_torch/profiling.py", "qbn_tpu_torch/sweep.py",
+                "qbn_tpu_torch/average_results.py", "qbn_tpu_torch/cli.py",
+                "qbn_tpu_torch/evaluation/presentation.py"):
         assert rel in names, rel
 
 
@@ -86,3 +93,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         eps["Trainer"](None, None, None, "float", 1, 1, None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eps["init_variables"](None, torch.Generator(), (28, 28, 1))
+
+
+def test_serving_cli_runs_on_the_card_by_default(monkeypatch, tmp_path):
+    """`python -m qbn_tpu_torch.serving` exports on the card unless given
+    --device cpu, and raises without one."""
+    from qbn_tpu_torch.serving import __main__ as serving_cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exp = ROOT / "examples" / "campaign" / "bbb-cifar-a_7_w_8-seed1"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_cli.main(["--exp", str(exp), "--out", str(tmp_path)])

@@ -195,7 +195,8 @@ def test_pack_layout_and_kernel_mapping():
             emu[d:d + e.numel()].reshape(e.shape), e.numpy())
     # seeded: the kernel's counters and table give the CPU's codes
     gen = torch.Generator().manual_seed(12)
-    emu = _emulate_kernel(pack, seed_offset=sw.seed_offset(gen))
+    emu = _emulate_kernel(pack,
+                          seed_offset=sw.key_from_generator(gen).tolist())
     got = sw.draw_layers(pack, torch.Generator().manual_seed(12))
     for g, d in zip(got, pack.dst):
         np.testing.assert_array_equal(
