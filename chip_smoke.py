@@ -19,7 +19,9 @@ campaign's CIFAR-10 and SVHN stand-ins written to disk, the uncertainty
 harness on the committed campaign states (held against the committed
 results.json) and `python -m qbn_tpu_torch.run`'s flows; then the
 serving export of the flagship's predictor and the experiment grid
-(with --dispatch, also the cost of the kernels' operator dispatch).
+(with --dispatch, also the cost of the kernels' operator dispatch); then
+the mesh of processes: the sample-sharded flagship evaluation and the
+data-parallel ResNet-18 step, and a runner flow over 2 ranks.
 Phases, in order, each printing its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
@@ -181,7 +183,23 @@ Phases, in order, each printing its seconds:
               tier, seeds 1 and 2, float then cell a_7_w_8: the -avg
               leaves against numpy's nanmean and nanstd, a rerun skipping
               every DONE cell
-  22. times   each kernel against its plain version and its bound, in
+  22. parallel the port's mesh (qbn_tpu_torch.parallel): world 2 (gloo
+              over CUDA tensors, both ranks on the card; NCCL, one card
+              a rank, where there are two), then an NCCL group of world
+              1; per rank the flagship's INT8 evaluation sharded over the
+              sample axis (B=256, S=100) with the codes given and seeded,
+              bitwise the one-process `evaluate`, and the BBB
+              ResNet-18's data-parallel step (B=256, batch norm global,
+              the head through the dense kernel) against the
+              one-process step within the PAR_* tolerances; the ranks'
+              launches; `python -m qbn_tpu_torch.run --mesh_shape 2
+              --debug` of BBB MNIST against its one-process run; ms per
+              sharded batch and step beside one process's (the ranks
+              share the card: not a scaling figure); the ms of a rank's
+              share of the seeded sharded evaluation (every rank makes
+              all S samples' draws) beside the share drawing its own
+              samples only, for BBB INT, MC-Dropout INT and float BBB
+  23. times   each kernel against its plain version and its bound, in
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
               against the float64 cuDNN conv alone and, at every shape
@@ -3874,6 +3892,465 @@ def phase_grid(dev):
     return secs
 
 
+# -- phase parallel: the mesh of processes (qbn_tpu_torch.parallel) -------
+
+PAR_WORLD = 2                 # ranks of the sharded checks
+PAR_TIMED = 3                 # timed batches and steps after the checked one
+PAR_TRAIN_STEPS = 10          # the ResNet step's n_batches (the LR schedule)
+# Tolerances of the sharded BBB ResNet-18 step against the one-process
+# step on the same batch and draws, set before the first chip run of this
+# phase from qbn_tpu's own (tests/test_parallel.py: obj rtol 1e-4, params
+# atol 1e-5): the loss PAR_OBJ_RTOL; each gradient leaf (Adam's first
+# moment) within PAR_GRAD_RTOL of the one-process leaf's norm; params
+# within PAR_PARAM_ATOL but where Adam's lr * sign(g) took the other sign
+# on a gradient at rounding level (each within 2 * lr, at most
+# PAR_FLIP_SHARE of the entries beyond PAR_PARAM_ATOL); batch norm's
+# running statistics PAR_STATS_RTOL relative (atol 1e-6). The gradients
+# and params are held with every ReLU's decisions pinned to the
+# one-process step's (`_relu_against`): at B=256 a few of the step's 100 M
+# ReLU inputs sit within rounding of zero, and one that takes the other
+# side moves every upstream gradient leaf through batch norm by up to
+# 0.5% in norm and 3e-4 to 6e-4 of the params by Adam's sign (the CPU at
+# full width: 5 such inputs, the one-process step against the same step
+# with the mesh's batch-norm sums at world 1); pinned, the leaves agree
+# within 6.6e-6 and 37-48 of 3.1 M params lie beyond 1e-5. The unpinned
+# step is held by its loss and running statistics, and its flipped ReLU
+# inputs, gradients and params printed.
+PAR_OBJ_RTOL, PAR_GRAD_RTOL = 1e-4, 1e-4
+PAR_PARAM_ATOL, PAR_FLIP_SHARE, PAR_STATS_RTOL = 1e-5, 1e-4, 1e-5
+# The seeded sample-sharded flagship evaluation against the one-process
+# one, test batch of B=256 at S=100: its error within PAR_ERR_BOUND, set
+# before the run (two independent 100-sample estimates of the predictive
+# flip the argmax of a few examples of small margin; the port's sharded
+# evaluation uses the one-process draws, so 0 is expected)
+PAR_ERR_BOUND = 0.05
+PAR_FLOAT_SAMPLES = 8         # the float share's S (qbn_tpu's mesh flow's)
+
+
+def _resnet_job(seed, dev):
+    """The BBB ResNet-18's training step that phase parallel shards: the
+    cifar preset with tpu_fused, its init from the seed, a step function
+    (sharded with a mesh) and its first state."""
+    from qbn_tpu_torch.parallel.sharded import make_sharded_train_step
+    from qbn_tpu_torch.training.trainer import make_train_step
+    cfg = preset("bbb", "cifar", tpu_fused=True, epochs=1, seed=seed)
+    model = build_model(cfg)
+    tx, _ = build_optimizer(cfg, PAR_TRAIN_STEPS)
+    v = init_variables(model, torch.Generator().manual_seed(seed),
+                       cfg.input_size, dev)
+    params = tree_map(lambda p: p.detach().requires_grad_(),
+                      v.pop("params"))
+    state = TrainState(params, v, tx.init(tree_map(torch.Tensor.detach,
+                                                   params)))
+    n_points = PAR_TRAIN_STEPS * RESNET_BATCH
+
+    def step_of(mesh):
+        if mesh is None:
+            return make_train_step(model, cfg, tx, "float", PAR_TRAIN_STEPS,
+                                   n_points)
+        return make_sharded_train_step(model, cfg, tx, "float",
+                                       PAR_TRAIN_STEPS, n_points, mesh)
+    return cfg, model, state, step_of
+
+
+def _step_record(state, logs):
+    """What phase parallel compares of a training step, on the CPU."""
+    def cpu(tree):
+        return tree_map(lambda t: t.detach().cpu(), tree)
+    return dict(logs={k: float(v) for k, v in logs.items()},
+                mu=cpu(state.opt_state["mu"]), params=cpu(state.params),
+                stats=cpu(state.model_state["batch_stats"]))
+
+
+@contextlib.contextmanager
+def _relu_recorded():
+    """torch.relu that keeps each call's decisions (x > 0) in the list
+    it yields."""
+    real, masks = torch.relu, []
+
+    def relu(x):
+        masks.append(x.detach() > 0)
+        return real(x)
+
+    torch.relu = relu
+    try:
+        yield masks
+    finally:
+        torch.relu = real
+
+
+@contextlib.contextmanager
+def _relu_against(masks, rows, pin):
+    """torch.relu checked call by call against recorded decisions (the
+    rows `rows` of each): the count of inputs on the other side goes into
+    the list it yields; with `pin`, each call takes the recorded decisions
+    (x * mask, whose gradient is the mask)."""
+    real, calls, flips = torch.relu, iter(masks), [0]
+
+    def relu(x):
+        mask = next(calls)[rows]
+        check(mask.shape == x.shape, f"relu {tuple(x.shape)} against a "
+              f"recorded {tuple(mask.shape)}")
+        flips[0] += int(((x.detach() > 0) != mask).sum())
+        return x * mask if pin else real(x)
+
+    torch.relu = relu
+    try:
+        yield flips
+    finally:
+        torch.relu = real
+    check(next(calls, None) is None, "fewer relu calls than recorded")
+
+
+def _timed_steps(step, state, x, y, noise, n, dev):
+    """ms per training step over n steps (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        state, _m, logs = step(state, cls_metrics_init(device=dev), x, y,
+                               noise)
+    end.record()
+    torch.cuda.synchronize()
+    check(math.isfinite(float(logs["obj"])), "non-finite loss")
+    return start.elapsed_time(end) / n
+
+
+def _share_ms(model, state, plan, rmodel, rstate, xt, seed, dev):
+    """ms of one rank's share of a seeded sample-sharded evaluation at
+    world PAR_WORLD (the first share, one process on the card), as the
+    sharded evaluation computes it (`local_outputs`: the draws of all S
+    samples, the forwards of the share's), beside the same share drawing
+    its own samples only (`mc_predict` at S / PAR_WORLD): the flagship's
+    INT8 evaluation, MC-Dropout's (full width, a state from the seed) at
+    S=SAMPLES, and the float BBB ResNet-18's at S=PAR_FLOAT_SAMPLES."""
+    from qbn_tpu_torch.parallel.sharded import local_outputs
+    mc, _pw, _ens = method_states(state, plan, seed, dev)
+    mc_model = build_model(Config(model=METHOD_MODELS["mcdropout"], q=True,
+                                  p=MC_P))
+    fstate = {"params": tree_map(torch.Tensor.detach, rstate.params),
+              **rstate.model_state}
+    out = {}
+    for what, m, st, s, mode, p in (
+            ("BBB INT", model, state, SAMPLES, "int", plan),
+            ("MC-Dropout INT", mc_model, mc, SAMPLES, "int", None),
+            ("BBB float ResNet-18", rmodel, fstate, PAR_FLOAT_SAMPLES,
+             "float", None)):
+        c = s // PAR_WORLD
+        g = torch.Generator(device=dev).manual_seed(seed + 154)
+        label = f"share {what} {c} of S={s}"
+        with torch.no_grad():
+            out[f"{label}, all S drawn"] = cuda_ms(
+                lambda: local_outputs(m, st, xt, slice(0, c), s, mode=mode,
+                                      plan=p, generator=g), iters=3,
+                warmup=1)
+            out[f"{label}, own drawn"] = cuda_ms(
+                lambda: mc_predict(m, st, xt, samples=c, mode=mode, plan=p,
+                                   generator=g), iters=3, warmup=1)
+    print(f"parallel, a rank's share of the seeded sharded evaluation "
+          f"(world {PAR_WORLD}, B={BATCH}), ms, with all S samples' draws "
+          f"as sharded, and with its own samples' only ({nvidia_smi()}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def _parallel_rank(mesh, job):
+    """One rank of phase parallel: the flagship's sample-sharded INT8
+    evaluation (the given codes, then seeded: PAR_TIMED + 1 batches) and
+    the BBB ResNet-18's sharded training step (with the one-process
+    step's ReLU decisions pinned, then free; then PAR_TIMED steps timed),
+    the kernels' counts set to 0 before and read after. Returns rank 0's
+    outputs and every rank's counts, state digest and ReLU inputs on the
+    other side of the one-process step's."""
+    import hashlib
+    import torch.distributed as dist
+    from qbn_tpu_torch.parallel.mesh import shard_batch, shard_rows
+    from qbn_tpu_torch.parallel.sharded import sharded_mc_predict
+    from qbn_tpu_torch.ops.stochastic import GeneratorNoise
+    dev = mesh.device
+    check(dev.type == job["device"], f"rank {mesh.rank} on {dev}")
+    torch.backends.cudnn.deterministic = True
+    _cfg, model, state = load_trained(EXP, device=dev)
+    x = torch.as_tensor(job["x"], device=dev)
+    y = torch.as_tensor(job["y"], device=dev)
+    codes = torch.load(job["codes"], map_location=dev)
+    rcfg, _rmodel, rstate, step_of = _resnet_job(job["seed"], dev)
+    rx = torch.as_tensor(job["rx"], device=dev)
+    ry = torch.as_tensor(job["ry"], device=dev)
+    rxb, ryb = shard_batch((rx, ry), mesh)
+    rows = shard_rows(len(ry), mesh)
+    relu_masks = [torch.as_tensor(np.unpackbits(bits, count=math.prod(
+        shape)).reshape(shape).astype(bool), device=dev)
+        for shape, bits in torch.load(job["relu"], weights_only=False)]
+    step = step_of(mesh)
+    dist.barrier()
+    _reset_counts()
+    bd.launches = 0
+    with torch.no_grad():
+        given_outs = sharded_mc_predict(model, state, x, mesh,
+                                        samples=SAMPLES, presampled=codes)
+        given = aggregate(given_outs)
+    gen = torch.Generator(device=dev).manual_seed(job["eval_seed"])
+    metric_state, probs, seconds = evaluate(
+        model, state, [(x, y)] * (1 + PAR_TIMED), SAMPLES, gen, dev,
+        mesh=mesh)
+    steps = {}
+    for pin in (True, False):
+        noise = GeneratorNoise(torch.Generator(device=dev).manual_seed(
+            job["noise_seed"]))
+        with _relu_against(relu_masks, rows, pin) as flips:
+            s1, _m, logs = step(rstate, cls_metrics_init(device=dev), rxb,
+                                ryb, noise)
+        steps[pin] = (s1, logs, flips[0])
+    del relu_masks
+    torch.cuda.synchronize()
+    step_ms = _timed_steps(step, s1, rxb, ryb, noise, PAR_TIMED, dev)
+    counts = dict(draw=sw.launches, conv=ic.launches,
+                  by_design=dict(ic.launches_by_design),
+                  shared=sum(ic.launches_shared_w.values()),
+                  dense=bd.launches)
+    h = hashlib.sha1()
+    for t in tree_leaves({"p": s1.params, "s": s1.model_state,
+                          "o": s1.opt_state}):
+        h.update(t.detach().cpu().numpy().tobytes())
+    per_rank = [None] * mesh.world
+    dist.all_gather_object(per_rank, dict(
+        rank=mesh.rank, device=str(dev), counts=counts,
+        digest=h.hexdigest(), relu_flips=steps[False][2],
+        pinned_flips=steps[True][2],
+        index=mesh.axis_index(mesh.axis_names[-1])))
+    return dict(backend=mesh.backend, per_rank=per_rank,
+                given_outs=given_outs.cpu(), given=given.cpu(),
+                probs=[p.cpu() for p in probs],
+                metrics={k: float(v) for k, v in cls_metrics_compute(
+                    metric_state).items()},
+                seconds=seconds,
+                pinned=_step_record(*steps[True][:2]),
+                step=_step_record(*steps[False][:2]), step_ms=step_ms)
+
+
+def _check_step(got, want, lr, what, pinned):
+    """A sharded training step against the one-process step: the loss and
+    the running statistics; pinned (the ReLU decisions the one-process
+    step's), also every gradient leaf and the params, which are printed
+    either way."""
+    for k in ("obj", "main_obj"):
+        a, b = got["logs"][k], want["logs"][k]
+        check(abs(a - b) <= PAR_OBJ_RTOL * abs(b),
+              f"{what}: {k} {a} vs {b}")
+    for (p, a), (_q, b) in zip(_leaf_items(got["stats"]),
+                               _leaf_items(want["stats"])):
+        check(bool(torch.allclose(a, b, rtol=PAR_STATS_RTOL, atol=1e-6)),
+              f"{what}: running statistic {p}")
+    worst = (0.0, None)
+    for (p, a), (_q, b) in zip(_leaf_items(got["mu"]),
+                               _leaf_items(want["mu"])):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        worst = max(worst, (rel, "/".join(p)))
+        check(not pinned or rel <= PAR_GRAD_RTOL,
+              f"{what}: gradient {p} {rel:.3g}")
+    d = torch.cat([(a - b).abs().reshape(-1) for (_p, a), (_q, b) in zip(
+        _leaf_items(got["params"]), _leaf_items(want["params"]))])
+    beyond = int((d > PAR_PARAM_ATOL).sum())
+    check(not pinned or (float(d.max()) <= 2 * lr
+                         and beyond <= PAR_FLIP_SHARE * d.numel()),
+          f"{what}: params max {float(d.max()):.3g}, {beyond} beyond "
+          f"{PAR_PARAM_ATOL:g}")
+    rel = abs(got["logs"]["obj"] - want["logs"]["obj"]) / abs(
+        want["logs"]["obj"])
+    print(f"{what}: loss {got['logs']['obj']:.6f} vs "
+          f"{want['logs']['obj']:.6f} (rel {rel:.3g}); running statistics "
+          f"within {PAR_STATS_RTOL:g}; gradient leaves within "
+          f"{worst[0]:.3g} relative in norm (at {worst[1]}); params max "
+          f"|diff| {float(d.max()):.3g}, {beyond} of {d.numel()} beyond "
+          f"{PAR_PARAM_ATOL:g} (Adam's lr * sign(g))"
+          + ("" if pinned else "; not held: see PAR_GRAD_RTOL's note"),
+          flush=True)
+
+
+def _mnist_dir(root):
+    """A small MNIST and FashionMNIST written in their file formats."""
+    from qbn_tpu_torch.data import synth, writers
+    writers.write_mnist_dir(root, *synth.make_synth_mnist(1100, 512, seed=2),
+                            prefix="MNIST")
+    fx, fy = synth.make_synth_images(1024, (28, 28, 1), 10, 7, proto_seed=9)
+    writers.write_mnist_dir(root, fx[:512], fy[:512], fx[512:], fy[512:],
+                            prefix="FashionMNIST")
+
+
+def phase_parallel(seed, state, model, plan, dev):
+    """The port's mesh on the card. World PAR_WORLD (gloo over CUDA
+    tensors with the ranks sharing the card; NCCL with one card a rank
+    where there are enough), then one NCCL group of world 1: per rank the
+    flagship's INT8 evaluation sharded over the sample axis (B=256,
+    S=100: 50 samples a rank at world 2) with the codes given (drawn once
+    by the draw kernel here, split by sample) and seeded (the draw kernel
+    on each rank), each aggregated output bitwise the one-process
+    `evaluate`'s, and the seeded test batch's error within PAR_ERR_BOUND
+    of it; the BBB ResNet-18's data-parallel float step (B=256, 128 rows
+    a rank, batch norm over the global batch, the head through the dense
+    kernel, cuDNN deterministic) against the one-process step within the
+    PAR_* tolerances (gradients and params with the ReLU decisions pinned
+    to the one-process step's), every rank's state bitwise the same. Then
+    `python -m qbn_tpu_torch.run --mesh_shape 2 --debug` of BBB MNIST
+    with --tpu_fused against the same run in one process: results.json
+    within rtol 1e-5, atol 1e-6. Before the launches, in this process,
+    `_share_ms`: what the draws of the other ranks' samples cost a rank.
+    Returns the ranks' kernel launches and {what: ms}."""
+    from qbn_tpu_torch.parallel import launch
+    from qbn_tpu_torch.parallel.mesh import device_map, pick_backend
+    from qbn_tpu_torch import run as runner
+    rng = np.random.default_rng(seed + 151)
+    x = rng.random((BATCH, 32, 32, 3), dtype=np.float32)
+    y = rng.integers(0, 10, BATCH)
+    rx = rng.random((RESNET_BATCH, 32, 32, 3), dtype=np.float32)
+    ry = rng.integers(0, 10, RESNET_BATCH)
+    job = dict(seed=seed, x=x, y=y, rx=rx, ry=ry, eval_seed=seed + 152,
+               noise_seed=seed + 153, device=dev.type)
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.no_grad():
+            codes = draw_sampled_weights(
+                state, plan, SAMPLES, torch.Generator().manual_seed(seed))
+            given_outs = mc_predict(model, state, xt, samples=SAMPLES,
+                                    presampled=codes)
+            given = aggregate(given_outs)
+            given_outs = given_outs.cpu()
+        job["codes"] = os.path.join(tmp, "codes.pt")
+        torch.save(tree_map(lambda t: t.cpu(), codes), job["codes"])
+        del codes
+        gen = torch.Generator(device=dev).manual_seed(job["eval_seed"])
+        metric_state, probs, seconds = evaluate(
+            model, state, [(x, y)] * (1 + PAR_TIMED), SAMPLES, gen, dev)
+        one = {k: float(v) for k, v in cls_metrics_compute(
+            metric_state).items()}
+        ms["eval one process"] = 1e3 * float(np.mean(seconds[1:]))
+        rcfg, rmodel, rstate, step_of = _resnet_job(seed, dev)
+        ms.update(_share_ms(model, state, plan, rmodel, rstate, xt, seed,
+                            dev))
+        rxt = torch.as_tensor(rx, device=dev)
+        ryt = torch.as_tensor(ry, device=dev)
+        from qbn_tpu_torch.ops.stochastic import GeneratorNoise
+        noise = GeneratorNoise(torch.Generator(device=dev).manual_seed(
+            job["noise_seed"]))
+        step = step_of(None)
+        with _relu_recorded() as relu_masks:
+            s1, _m, logs = step(rstate, cls_metrics_init(device=dev), rxt,
+                                ryt, noise)
+        want = _step_record(s1, logs)
+        job["relu"] = os.path.join(tmp, "relu.pt")
+        torch.save([(tuple(m.shape), np.packbits(m.cpu().numpy()))
+                    for m in relu_masks], job["relu"])
+        del relu_masks
+        ms["train one process"] = _timed_steps(step, s1, rxt, ryt, noise,
+                                               PAR_TIMED, dev)
+        del s1, rstate, step
+        torch.cuda.empty_cache()
+        counts = {"draw": 0, "conv": 0, "dense": 0, "shared": 0,
+                  "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0}}
+        for world in (PAR_WORLD, 1):
+            backend = pick_backend(world, dev.type)
+            print(f"parallel world {world}: backend {backend}, devices "
+                  f"{device_map(world, dev.type)}", flush=True)
+            t0 = time.perf_counter()
+            got = launch(_parallel_rank, (world,), job, device=dev.type,
+                         timeout=300, deadline=600)
+            what = f"parallel world {world} ({backend})"
+            check(got["backend"] == backend, f"{what}: {got['backend']}")
+            ranks = got["per_rank"]
+            check([r["index"] for r in ranks] == list(range(world)),
+                  f"{what}: sample shares {ranks}")
+            check(len({r["digest"] for r in ranks}) == 1,
+                  f"{what}: the ranks' states differ")
+            d_outs = float((got["given_outs"] - given_outs).abs().max())
+            d_given = float((got["given"] - given.cpu()).abs().max())
+            print(f"{what}: given codes, per-sample outputs max |diff| "
+                  f"{d_outs:.3g}, aggregated {d_given:.3g}", flush=True)
+            check(torch.equal(got["given_outs"], given_outs),
+                  f"{what}: sharded per-sample outputs with the given codes "
+                  "!= one process's")
+            check(torch.equal(got["given"], given.cpu()),
+                  f"{what}: sharded probabilities with the given codes != "
+                  "one process's")
+            check(len(got["probs"]) == len(probs) and all(
+                torch.equal(a, b.cpu()) for a, b in zip(got["probs"],
+                                                        probs)),
+                  f"{what}: seeded sharded probabilities != one process's")
+            p0 = got["probs"][0]
+            check(bool(torch.isfinite(p0).all()) and float(
+                (p0.sum(-1) - 1).abs().max()) < 1e-5,
+                f"{what}: probabilities not finite or not summing to 1")
+            derr = abs(got["metrics"]["error"] - one["error"])
+            check(derr <= PAR_ERR_BOUND, f"{what}: error {derr}")
+            _check_step(got["pinned"], want, rcfg.learning_rate,
+                        f"{what}, BBB ResNet-18 step, ReLU decisions "
+                        "pinned", True)
+            _check_step(got["step"], want, rcfg.learning_rate,
+                        f"{what}, BBB ResNet-18 step", False)
+            for r in ranks:
+                c = r["counts"]
+                forwards = 2 + PAR_TIMED          # given + seeded batches
+                check(c["draw"] == 1 + PAR_TIMED
+                      and c["conv"] == CONVS_PER_BATCH * forwards
+                      and c["dense"] == 2 + PAR_TIMED and not c["shared"],
+                      f"{what}: rank {r['rank']} launches {c}")
+                print(f"{what} rank {r['rank']} on {r['device']}: launches "
+                      f"draw {c['draw']}, conv {c['conv']} (by body "
+                      f"{c['by_design']}), dense {c['dense']}; ReLU inputs "
+                      f"on the other side of the one-process step's "
+                      f"{r['relu_flips']} unpinned, {r['pinned_flips']} "
+                      "pinned (then held to its decisions)", flush=True)
+                counts["draw"] += c["draw"]
+                counts["conv"] += c["conv"]
+                counts["dense"] += c["dense"]
+                for k, v in c["by_design"].items():
+                    counts["conv_by_design"][k] += v
+            ms[f"eval world {world}"] = 1e3 * float(np.mean(
+                got["seconds"][1:]))
+            ms[f"train world {world}"] = got["step_ms"]
+            print(f"{what}: the flagship's sample-sharded evaluation "
+                  f"(B={BATCH}, S={SAMPLES}, {SAMPLES // world} a rank) "
+                  f"bitwise one process's, given codes and seeded "
+                  f"({1 + PAR_TIMED} batches), error {got['metrics']['error']:.4f}"
+                  f" vs {one['error']:.4f}; launch {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+        torch.backends.cudnn.deterministic = saved_det
+        data = os.path.join(tmp, "mnist")
+        _mnist_dir(data)
+        results = {}
+        for name, extra in (("one process", []),
+                            ("mesh 2", ["--mesh_shape", "2"])):
+            t0 = time.perf_counter()
+            d = runner.main(["--method", "bbb", "--tier", "mnist",
+                             "--epochs", "2", "--debug", "--tpu_fused",
+                             "--device", dev.type, "--data", data, "--save",
+                             os.path.join(tmp, name.replace(" ", "-")),
+                             *extra])
+            ms[f"run {name} (s)"] = time.perf_counter() - t0
+            with open(os.path.join(d, "results.json")) as fh:
+                results[name] = dict(_leaf_items(json.load(fh)))
+            check(os.path.exists(os.path.join(d, "DONE")), f"run {name}")
+        a, b = results["one process"], results["mesh 2"]
+        n = 0
+        for k, v in a.items():
+            if k[0] in ("error", "nll", "ece", "entropy"):
+                check(k in b and math.isclose(b[k], v, rel_tol=1e-5,
+                                              abs_tol=1e-6),
+                      f"mesh run {k}: {b.get(k)} vs {v}")
+                n += 1
+        check(n >= 20, f"mesh run: {n} entries compared")
+        print(f"parallel run: `python -m qbn_tpu_torch.run --mesh_shape 2 "
+              f"--debug` of BBB MNIST (--tpu_fused) == the one-process run,"
+              f" {n} entries of results.json within rtol 1e-5, atol 1e-6",
+              flush=True)
+    print(f"parallel, NOT a scaling figure (the ranks share one card; "
+          f"{nvidia_smi()}): " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in ms.items()))
+    return counts, ms
+
 def _at(tree, path):
     for k in path:
         tree = tree[k]
@@ -3967,6 +4444,9 @@ def main(argv=None) -> int:
             dispatch = phase_dispatch(args.seed, state, model, plan, dev)
     with Phase("grid"):
         grid_secs = phase_grid(dev)
+    with Phase("parallel"):
+        p_counts, p_ms = phase_parallel(args.seed, state, model, plan, dev)
+        torch.cuda.empty_cache()
     with Phase("times"):
         ms, plain_ms, bound_ms, bound_by = phase_times(
             state, plan, SAMPLES, args.seed)
@@ -4004,21 +4484,25 @@ def main(argv=None) -> int:
         print("Operators' dispatch: " + json.dumps(dispatch))
     print("Grid (--debug), seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in grid_secs.items()))
+    print("Parallel (ranks share one card: not a scaling figure), ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in p_ms.items()))
     resnet_dense = (sum(r_launches.values()) + q_counts["dense"]
-                    + u_counts["dense"])
+                    + u_counts["dense"] + p_counts["dense"])
     by_kn = g_counts["dense_by_kn"]
     mlp_launches = {"mlp_in": by_kn[(13, 100)], "mlp_head": by_kn[(100, 1)]}
     print(f"launches on the paths: draw {launches} (main) + "
           f"{q_counts['draw']} (INT after QAT) + {g_counts['draw']} "
           f"(regression INT) + {h_counts['draw']} (harness) + "
-          f"{u_counts['draw']} (runner) + {v_counts['draw']} (serving); "
-          f"dense {dense_launches} "
+          f"{u_counts['draw']} (runner) + {v_counts['draw']} (serving) + "
+          f"{p_counts['draw']} (parallel ranks); dense {dense_launches} "
           f"(LeNet) + {sum(r_launches.values())} (ResNet fit) + "
           f"{q_counts['dense']} (QAT) + {g_counts['dense']} (regression, "
-          f"by (K, N) {dict(by_kn)}) + {u_counts['dense']} (runner); conv "
+          f"by (K, N) {dict(by_kn)}) + {u_counts['dense']} (runner) + "
+          f"{p_counts['dense']} (parallel ranks); conv "
           f"{conv_launches} (main) + {q_counts['conv']} (BBB INT after "
           f"QAT) + {h_counts['conv']} (harness) + {u_counts['conv']} "
-          f"(runner) + {v_counts['conv']} (serving), shared weights "
+          f"(runner) + {v_counts['conv']} (serving) + {p_counts['conv']} "
+          f"(parallel ranks), shared weights "
           f"{sum(m_launches.values())} (methods) + {q_counts['conv_shared']}"
           f" (INT after QAT) + {s_counts['conv_shared']} (SGHMC ensemble)")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
@@ -4028,7 +4512,7 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES,
         "launches": (launches + q_counts["draw"] + g_counts["draw"]
                      + h_counts["draw"] + u_counts["draw"]
-                     + v_counts["draw"]),
+                     + v_counts["draw"] + p_counts["draw"]),
         "max_abs_err": max(max_err, g_counts["draw_err"]), "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
@@ -4058,11 +4542,13 @@ def main(argv=None) -> int:
         "name": "int_conv" + ("" if key == "all" else f"/{key}"),
         "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
         "launches": (conv_launches + q_counts["conv"] + h_counts["conv"]
-                     + u_counts["conv"] + v_counts["conv"] if key == "all"
+                     + u_counts["conv"] + v_counts["conv"]
+                     + p_counts["conv"] if key == "all"
                      else by_design[key] + q_counts["conv_by_design"][key]
                      + h_counts["conv_by_design"][key]
                      + u_counts["conv_by_design"][key]
-                     + v_counts["conv_by_design"][key]),
+                     + v_counts["conv_by_design"][key]
+                     + p_counts["conv_by_design"][key]),
         "max_abs_err": (max(conv_errs.values()) if key == "all" else
                         conv_errs[key]),
         "ms": conv_times[key][0], "plain_ms": conv_times[key][1],

@@ -3,9 +3,11 @@ of qbn_tpu/models/layers.py).
 
 Only the fields that the ported paths read are kept (INT and float
 evaluation, float training with Adam or SGHMC, QAT, the checkpoint
-policy, the data pipeline, the experiment runner and profiling);
-`Config.from_json` ignores the other keys of an experiment's config.json
-(the mesh fields), and `to_json` writes the port's fields. `tpu_fused` keeps
+policy, the data pipeline, the experiment runner, profiling and the
+mesh); `Config.from_json` ignores the other keys of an experiment's
+config.json, and `to_json` writes the port's fields. `mesh_shape` runs
+the experiment over a mesh of processes (parallel/mesh.py): None is one
+device, (n,) a 1-D data mesh, (d, s) a (data, sample) mesh. `tpu_fused` keeps
 qbn_tpu's name so that a config.json carries across; in the port it routes
 the BBB local-reparametrisation dense layers through the hand-written CUDA
 kernel of `ops/bbb_dense.py`.
@@ -74,14 +76,17 @@ class Config:
     debug_nans: bool = False              # raise on the first non-finite
     #                                       module output (and backward)
     profile: bool = False                 # torch.profiler trace of training
+    # multi-device (parallel/mesh.py)
+    mesh_shape: Optional[Tuple[int, ...]] = None   # None: one device
 
     @classmethod
     def from_json(cls, path: str) -> "Config":
         with open(path) as fh:
             raw = json.load(fh)
         kw = {k: v for k, v in raw.items() if k in cls.__dataclass_fields__}
-        if "input_size" in kw:
-            kw["input_size"] = tuple(kw["input_size"])
+        for k in ("input_size", "mesh_shape"):
+            if kw.get(k) is not None:
+                kw[k] = tuple(kw[k])
         return cls(**kw)
 
     def to_json(self, path: str) -> None:

@@ -10,6 +10,10 @@ fold, each fold's state read from cfg.save, RMSE and NLL averaged over
 the folds (nanmean), and the synthetic task's uncertainty decomposition
 plot. The model's method chooses the Monte-Carlo path (evaluation/mc.py);
 everything runs on `device`, the card unless the caller asks for the CPU.
+With cfg.mesh_shape (inside a launched group, parallel/mesh.py) every
+split, the OOD set and the sweep are evaluated sample-sharded over the
+mesh, on the mesh's device; rank 0 alone writes results.json and the
+plots.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from qbn_tpu_torch.evaluation.plots import (
 from qbn_tpu_torch.evaluation.results import (
     init_results, load_results, save_results)
 from qbn_tpu_torch.models.factory import build_model, load_state
+from qbn_tpu_torch.parallel.mesh import mesh_from_config
 from qbn_tpu_torch.training.checkpoint import model_size_mb
 from qbn_tpu_torch.utils import full_float32, resolve_device
 
@@ -53,8 +58,17 @@ def _record_distortion(results, distortion, level, error, ece, entropy, nll):
         results[key].setdefault(distortion, {})[str(level)] = val
 
 
+def _main(mesh) -> bool:
+    """Whether this process writes the run's files (rank 0 of a mesh)."""
+    return mesh is None or mesh.is_main
+
+
+def _device(device, mesh):
+    return resolve_device(device) if mesh is None else mesh.device
+
+
 def evaluate_and_record(model, state, cfg: Config, mode: str, results,
-                        device="cuda"):
+                        device="cuda", mesh=None):
     """The train, valid and test splits into `results`. Returns the test
     split's (probabilities, targets) for the calibration plots."""
     train_loader, val_loader = get_train_loaders(cfg, device=device)
@@ -65,7 +79,8 @@ def evaluate_and_record(model, state, cfg: Config, mode: str, results,
         if loader is None:
             continue
         error, ece, entropy, nll, o, t, sps = evaluate_with_loader(
-            loader, model, state, cfg, mode, salt=split, device=device)
+            loader, model, state, cfg, mode, salt=split, device=device,
+            mesh=mesh)
         log.info("## %s error=%.4f ece=%.4f entropy=%.4f nll=%.4f "
                  "(%.0f example-samples/s) ##", split, error, ece, entropy,
                  nll, sps)
@@ -80,13 +95,15 @@ def evaluate_classification_uncertainty(model, state, cfg: Config,
     """The full MNIST/CIFAR uncertainty protocol of a model and its state
     (float or converted, as `mode` says; an SGHMC state stacked).
     Returns the results dict, also saved as cfg.save/results.json."""
-    device = resolve_device(device)
+    mesh = mesh_from_config(cfg)
+    device = _device(device, mesh)
     state = to_device(state, device)
     results = load_results(cfg.save) or init_results(cfg)
     results["model_size"] = model_size_mb(state)
     out, tgt = evaluate_and_record(model, state, cfg, mode, results,
-                                   device)
-    if out is not None:
+                                   device, mesh)
+    main = _main(mesh)
+    if out is not None and main:
         plot_reliability(out, tgt, os.path.join(cfg.save, "ece_test.png"))
         plot_confidence_histogram(out, os.path.join(cfg.save,
                                                     "certainty_test.png"))
@@ -94,24 +111,26 @@ def evaluate_classification_uncertainty(model, state, cfg: Config,
     ood_loader = get_test_loader(
         cfg.replace(dataset="random_" + cfg.dataset), device=device)
     error, ece, entropy, nll, out, tgt, sps = evaluate_with_loader(
-        ood_loader, model, state, cfg, mode, salt="random", device=device)
+        ood_loader, model, state, cfg, mode, salt="random", device=device,
+        mesh=mesh)
     log.info("## random error=%.4f ece=%.4f entropy=%.4f nll=%.4f ##",
              error, ece, entropy, nll)
     _record(results, "random", error, ece, entropy, nll, sps)
-    if out is not None:
+    if out is not None and main:
         plot_reliability(out, tgt, os.path.join(cfg.save, "ece_random.png"))
         plot_confidence_histogram(out, os.path.join(cfg.save,
                                                     "certainty_random.png"))
 
     for distortion, level, error, ece, entropy, nll in \
             evaluate_distortion_sweep(model, state, cfg, mode,
-                                      device=device):
+                                      device=device, mesh=mesh):
         log.info("## %s level %d: error=%.4f ece=%.4f entropy=%.4f "
                  "nll=%.4f ##", distortion, level + 1, error, ece, entropy,
                  nll)
         _record_distortion(results, distortion, level, error, ece, entropy,
                            nll)
-    save_results(results, cfg.save)
+    if main:
+        save_results(results, cfg.save)
     return results
 
 
@@ -124,7 +143,8 @@ def evaluate_regression_uncertainty(cfg: Config, mode: str, datasets=None,
     splits evaluated (seed = the fold), RMSE and NLL averaged over the
     folds. Returns the results dict, also saved as cfg.save/results.json,
     and draws the synthetic task's plot."""
-    device = resolve_device(device)
+    mesh = mesh_from_config(cfg)
+    device = _device(device, mesh)
     results = load_results(cfg.save) or init_results(cfg)
     datasets = datasets if datasets is not None else REGRESSION_DATASETS
     for dataset, n_folds in datasets:
@@ -151,7 +171,7 @@ def evaluate_regression_uncertainty(cfg: Config, mode: str, datasets=None,
                 error, _, _, nll, _, _, _ = evaluate_with_loader(
                     loader, model, state, fcfg, mode, seed=fold,
                     collect_outputs=False, salt=f"{name}_{split}",
-                    device=device)
+                    device=device, mesh=mesh)
                 per_split[split]["rmse"].append(error)
                 per_split[split]["nll"].append(nll)
             if cfg.debug:
@@ -165,8 +185,9 @@ def evaluate_regression_uncertainty(cfg: Config, mode: str, datasets=None,
             results["nll"].setdefault(name, {})[split] = nll
             log.info("## %s %s rmse=%.4f nll=%.4f ##", name, split, rmse,
                      nll)
-    save_results(results, cfg.save)
-    plot_synthetic_decomposition(cfg, mode, device=device)
+    if _main(mesh):
+        save_results(results, cfg.save)
+        plot_synthetic_decomposition(cfg, mode, device=device)
     return results
 
 

@@ -28,6 +28,11 @@ state. `evaluate` is the entry point and dispatches on the model's
 evaluates one split with its own generator (qbn_tpu's per-split key) and
 returns its metrics, and `evaluate_distortion_sweep` the 15 distorted
 test sets, made on the device from one upload of the clean test set.
+
+With a mesh (parallel/mesh.py), each takes the sample-sharded evaluation
+of parallel/sharded.py when the samples divide over the mesh's devices
+and exceed 1 (qbn_tpu's gate): every rank computes its share of the
+samples, and every rank ends with the one-process result.
 """
 
 from __future__ import annotations
@@ -227,10 +232,14 @@ def float_predict(model, state, x, *, samples: int,
 def aggregate(outs, task: str = "classification"):
     """The predictive over the sample axis: classification, the mean of
     the probabilities; regression, (E[mu], Var[mu] (ddof=1, as torch.var)
-    + E[var]), the variance term dropped at one sample."""
+    + E[var]), the variance term dropped at one sample. The reductions
+    run over contiguous (S, B, ...) memory, whatever layout the forward
+    left (the merged layout's outputs are views of (B, S, ...) memory),
+    so that the result depends on the outputs' values alone: the samples
+    joined from chunks or ranks aggregate bitwise as one forward's."""
     if task == "classification":
-        return torch.mean(outs, dim=0)
-    mu, var = outs
+        return torch.mean(outs.contiguous(), dim=0)
+    mu, var = (o.contiguous() for o in outs)
     mean = torch.mean(mu, dim=0)
     total = torch.mean(var, dim=0)
     if mu.shape[0] > 1:
@@ -240,7 +249,7 @@ def aggregate(outs, task: str = "classification"):
 
 def evaluate(model, state, batches: Iterable, samples: int,
              generator: Optional[torch.Generator] = None, device="cuda",
-             mode: str = "int"):
+             mode: str = "int", mesh=None):
     """MC evaluation over (x, y) batches of a model from models/factory.py
     (its `method` and `task` choose the path), INT8 on a converted state
     (mode 'int') or float32 on a float one (mode 'float'): x (B, ...)
@@ -249,10 +258,19 @@ def evaluate(model, state, batches: Iterable, samples: int,
     (MC-Dropout; a generator on the card draws them there); an SGHMC
     state holds `samples` stacked members.
 
+    mesh: a parallel.mesh.Mesh; with samples % mesh.size == 0 and
+    samples > 1 the sample axis is sharded over it (device: the mesh's).
+
     Returns (metric_state, [aggregated output per batch: (B, classes)
     probabilities, or (mean, var)], [seconds per batch, host clock
     around work that ends in a device synchronise])."""
     device = resolve_device(device)
+    predict = mc_predict
+    if mesh is not None and samples % mesh.size == 0 and samples > 1:
+        from qbn_tpu_torch.parallel.sharded import sharded_mc_predict
+
+        def predict(model, state, x, **kw):
+            return sharded_mc_predict(model, state, x, mesh, **kw)
     state = to_device(state, device)
     method, regression = model.method, model.task == "regression"
     plan = (presample_plan(state) if method == "bbb" and mode == "int"
@@ -272,9 +290,9 @@ def evaluate(model, state, batches: Iterable, samples: int,
             y = torch.as_tensor(y, device=device,
                                 dtype=torch.float32 if regression
                                 else torch.int64)
-            outs = mc_predict(model, state, x, samples=samples, plan=plan,
-                              generator=generator, masks=masks,
-                              ensemble=method == "sgld", mode=mode)
+            outs = predict(model, state, x, samples=samples, plan=plan,
+                           generator=generator, masks=masks,
+                           ensemble=method == "sgld", mode=mode)
             agg = aggregate(outs, model.task)
             if regression:
                 metric_state = M.reg_metrics_update(metric_state, *agg, y)
@@ -305,12 +323,13 @@ def split_generator(cfg, salt: str, seed: int = 0, device="cuda"):
 def evaluate_with_loader(loader, model, state, cfg, mode: str,
                          samples: Optional[int] = None, seed: int = 0,
                          collect_outputs: bool = True, salt: str = "",
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """Monte-Carlo evaluation of one split (qbn_tpu's
     `evaluate_with_loader`): its (x, y) batches from `loader` (with
     cfg.debug, the first only), `evaluate` with the split's generator
     (`split_generator(cfg, salt, seed)`), cfg.samples samples unless
-    given. Returns (error, ece, entropy, nll, outputs, targets,
+    given, sample-sharded over `mesh` where `evaluate` takes it. Returns
+    (error, ece, entropy, nll, outputs, targets,
     example-samples per second): for regression error is the RMSE and
     ece and entropy are 0; outputs and targets are numpy (the (N,
     classes) probabilities, or (mean, var)), None without
@@ -328,7 +347,7 @@ def evaluate_with_loader(loader, model, state, cfg, mode: str,
 
     t0 = time.perf_counter()
     metric_state, outs, _sec = evaluate(model, state, batches(), samples,
-                                        gen, device, mode)
+                                        gen, device, mode, mesh)
     dt = max(time.perf_counter() - t0, 1e-9)
     sps = float(metric_state["count"]) * samples / dt
     if model.task == "classification":
@@ -351,14 +370,15 @@ def evaluate_with_loader(loader, model, state, cfg, mode: str,
 
 def evaluate_distortion_sweep(model, state, cfg, mode: str,
                               samples: Optional[int] = None, seed: int = 0,
-                              device="cuda"):
+                              device="cuda", mesh=None):
     """The 3 x 5 distortion sweep of an image dataset's test set (qbn_tpu's
     device sweep): the clean images uploaded once, each cell made on the
     device (`apply_spec`), normalised, cut into cfg.batch_size batches in
     order and evaluated with the cell's generator (salt
     f"{distortion}{level}"), as qbn_tpu's loader path would evaluate
     `get_test_loader(cfg, distortion, level)`. With cfg.debug, the first
-    cell only. Returns [(distortion, level, error, ece, entropy, nll)]."""
+    cell only; sample-sharded over `mesh` as `evaluate` takes it.
+    Returns [(distortion, level, error, ece, entropy, nll)]."""
     device = resolve_device(device)
     x, y = D.load_images(cfg.dataset, cfg.data, train=False)
     xd, yd = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
@@ -373,6 +393,7 @@ def evaluate_distortion_sweep(model, state, cfg, mode: str,
                    for i in range(0, len(xc), bsz)]
         error, ece, entropy, nll, _o, _t, _sps = evaluate_with_loader(
             batches, model, state, cfg, mode, samples, seed,
-            collect_outputs=False, salt=f"{d}{lv}", device=device)
+            collect_outputs=False, salt=f"{d}{lv}", device=device,
+            mesh=mesh)
         out.append((d, lv, error, ece, entropy, nll))
     return out

@@ -46,6 +46,15 @@ cfg.debug_nans turns on `profiling.nan_debugging` for `train_loop` (the
 first non-finite module output raises, naming the module; the mode ends
 with the loop); cfg.profile writes a torch.profiler trace of
 `train_loop` to <save_dir>/profile/trace.json.
+
+With cfg.mesh_shape, every flow runs in each rank of a launched group
+(parallel/mesh.py; `run.py --mesh_shape` launches them): the mesh comes
+from the config, each rank works on the mesh's device, training takes
+the sharded steps and the evaluation the sample-sharded one, rank 0
+alone writes the files (config.json, checkpoints, scalars.jsonl,
+results.json, plots, its log to log.log), and the ranks wait for each
+other where a file is read back. `setup_experiment` runs once, before
+the launch (its directory name carries a timestamp).
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from qbn_tpu_torch.evaluation.results import init_results, save_results
 from qbn_tpu_torch.evaluation.writer import ScalarWriter
 from qbn_tpu_torch.models.factory import build_model, load_state
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
+from qbn_tpu_torch.parallel.mesh import mesh_from_config
 from qbn_tpu_torch.profiling import nan_debugging, trace
 from qbn_tpu_torch.training.checkpoint import (
     checkpoint_path, list_snapshots, merge, read_checkpoint, save_variables)
@@ -79,6 +89,17 @@ from qbn_tpu_torch.training.trainer import Trainer
 from qbn_tpu_torch.utils import convert_model, init_variables, resolve_device
 
 log = logging.getLogger(__name__)
+
+
+def _on_mesh(cfg: Config, device):
+    """(mesh, device): the config's mesh (None: one device) and the
+    device to work on (the mesh's)."""
+    mesh = mesh_from_config(cfg)
+    return mesh, resolve_device(device) if mesh is None else mesh.device
+
+
+def _is_main(mesh) -> bool:
+    return mesh is None or mesh.is_main
 
 
 def _batches(batches):
@@ -110,7 +131,7 @@ def fit(cfg: Config, train_batches, valid_batches=None, device="cuda",
     config with cfg.at (preset(..., phase='qat')) trains in 'qat' mode,
     the QAT fine-tune; any other in 'float' mode. save_dir and
     special_info: see the module docstring."""
-    device = resolve_device(device)
+    mesh, device = _on_mesh(cfg, device)
     train_batches = _batches(train_batches)
     valid_batches = _batches(valid_batches)
     if dataset_size is not None:
@@ -122,7 +143,7 @@ def fit(cfg: Config, train_batches, valid_batches=None, device="cuda",
     x0, _y0 = next(iter(train_batches))
     cfg = cfg.replace(input_size=tuple(x0.shape[1:]), save=save_dir)
     writer = None
-    if save_dir is not None:
+    if save_dir is not None and _is_main(mesh):
         os.makedirs(save_dir, exist_ok=True)
         cfg.to_json(os.path.join(save_dir, "config.json"))
         writer = ScalarWriter(save_dir)
@@ -139,7 +160,8 @@ def fit(cfg: Config, train_batches, valid_batches=None, device="cuda",
     trainer = Trainer(model, cfg, tx, "qat" if cfg.at else "float",
                       len(train_batches), n_points,
                       GeneratorNoise(generator), device,
-                      masks=BernoulliMasks(generator, 1), writer=writer)
+                      masks=BernoulliMasks(generator, 1), writer=writer,
+                      mesh=mesh)
     state = trainer.init_state(variables)
     try:
         with trace(os.path.join(save_dir, "profile") if save_dir else None,
@@ -151,6 +173,8 @@ def fit(cfg: Config, train_batches, valid_batches=None, device="cuda",
     finally:
         if writer is not None:
             writer.close()
+    if mesh is not None:
+        mesh.barrier()          # rank 0's checkpoints are on disk
     return model, trainer, state
 
 
@@ -164,6 +188,7 @@ def _qat_one(cfg: Config, init_from, train_batches, valid_batches, device,
     model, trainer, state = fit(cfg, train_batches, valid_batches, device,
                                 generator, dataset_size, init_from,
                                 save_dir, special_info)
+    mesh, device = trainer.mesh, trainer.device
     variables = trainer.variables(state)
     path = None
     if save_dir is not None:
@@ -173,8 +198,10 @@ def _qat_one(cfg: Config, init_from, train_batches, valid_batches, device,
     x0 = torch.as_tensor(next(iter(train_batches))[0], dtype=torch.float32,
                          device=device)
     variables = convert_model(model, variables, x0)
-    if path is not None:
+    if path is not None and _is_main(mesh):
         save_variables(variables, path)
+    if mesh is not None:
+        mesh.barrier()
     return model, trainer, variables
 
 
@@ -204,7 +231,7 @@ def qat(cfg: Config, init_from: Union[str, dict], train_batches,
     its draws running on; `run_qat_classification` and
     `run_qat_regression` give each member fresh loaders, as qbn_tpu's
     flows do."""
-    device = resolve_device(device)
+    _mesh, device = _on_mesh(cfg, device)
     if not (cfg.q and cfg.at):
         raise ValueError("qat needs a config with q and at set "
                          "(preset(..., phase='qat'))")
@@ -258,18 +285,7 @@ def setup_experiment(cfg: Config, label: str = "") -> Config:
                 else cfg.save)
     os.makedirs(save, exist_ok=True)
     cfg = cfg.replace(save=save)
-
-    root = logging.getLogger()
-    for h in list(root.handlers):
-        if getattr(h, "_qbn_run_log", False):
-            root.removeHandler(h)
-            h.close()
-    fh = logging.FileHandler(os.path.join(save, "log.log"))
-    fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-    fh._qbn_run_log = True
-    root.addHandler(fh)
-    root.setLevel(logging.INFO)
-
+    attach_run_log(save)
     cfg.to_json(os.path.join(save, "config.json"))
     try:
         rev = subprocess.run(["git", "rev-parse", "HEAD"],
@@ -286,10 +302,26 @@ def setup_experiment(cfg: Config, label: str = "") -> Config:
     return cfg
 
 
+def attach_run_log(save: str) -> None:
+    """Send this process's log to <save>/log.log (appending; the previous
+    run's log file closed)."""
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        if getattr(h, "_qbn_run_log", False):
+            root.removeHandler(h)
+            h.close()
+    fh = logging.FileHandler(os.path.join(save, "log.log"))
+    fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+    fh._qbn_run_log = True
+    root.addHandler(fh)
+    root.setLevel(logging.INFO)
+
+
 def run_float_classification(cfg: Config, device="cuda") -> None:
     """Train cfg's classifier into cfg.save, then evaluate the saved state
     (the last or best checkpoint; for SGHMC the last cfg.samples
     snapshots) by the full protocol, in float."""
+    _mesh, device = _on_mesh(cfg, device)
     train, valid = get_train_loaders(cfg, device=device)
     model, _trainer, _state = fit(cfg, train, valid, device,
                                   save_dir=cfg.save)
@@ -300,6 +332,7 @@ def run_float_classification(cfg: Config, device="cuda") -> None:
 def run_float_regression(cfg: Config, datasets=None, device="cuda") -> None:
     """Train one model per (dataset, fold) into cfg.save (with cfg.debug,
     fold 0 of each dataset), then the regression protocol in float."""
+    mesh, device = _on_mesh(cfg, device)
     datasets = datasets if datasets is not None else REGRESSION_DATASETS
     for dataset, n_folds in datasets:
         for fold in range(n_folds):
@@ -311,7 +344,8 @@ def run_float_regression(cfg: Config, datasets=None, device="cuda") -> None:
             if cfg.debug:
                 break
     # each fold's fit wrote its own config; the run's is cfg
-    cfg.to_json(os.path.join(cfg.save, "config.json"))
+    if _is_main(mesh):
+        cfg.to_json(os.path.join(cfg.save, "config.json"))
     evaluate_regression_uncertainty(cfg, "float", datasets, device)
 
 
@@ -336,6 +370,7 @@ def run_qat_classification(cfg: Config, load_dir: str,
     """QAT and convert of a float run's classifier (`load_dir`; each SGHMC
     snapshot on its own) into cfg.save, then the full protocol on the
     converted state, in INT."""
+    _mesh, device = _on_mesh(cfg, device)
     _qat_run(cfg, load_dir, -1, "", device)
     evaluate_classification_uncertainty(
         build_model(cfg), load_state(cfg, cfg.save), cfg, "int", device)
@@ -345,6 +380,7 @@ def run_qat_regression(cfg: Config, load_dir: str, datasets=None,
                        device="cuda") -> None:
     """QAT and convert of each (dataset, fold) model of a float run (with
     cfg.debug, fold 0 of each), then the regression protocol in INT."""
+    mesh, device = _on_mesh(cfg, device)
     datasets = datasets if datasets is not None else REGRESSION_DATASETS
     for dataset, n_folds in datasets:
         for fold in range(n_folds):
@@ -352,5 +388,6 @@ def run_qat_regression(cfg: Config, load_dir: str, datasets=None,
                      fold, f"_{dataset}_{fold}", device)
             if cfg.debug:
                 break
-    cfg.to_json(os.path.join(cfg.save, "config.json"))
+    if _is_main(mesh):
+        cfg.to_json(os.path.join(cfg.save, "config.json"))
     evaluate_regression_uncertainty(cfg, "int", datasets, device)

@@ -54,6 +54,7 @@ from qbn_tpu_torch.quant.bn_fold import fuse_conv_bn_weights, sqrt_rn
 from qbn_tpu_torch.quant.fake_quant import fake_quantize, quantize
 from qbn_tpu_torch.quant.observer import (
     calculate_qparams, obs_init, obs_update)
+from qbn_tpu_torch.ops.collectives import data_group, global_moments
 from qbn_tpu_torch.ops.integer import (
     int_conv, int_conv_merged, int_dense, int_dense_merged)
 from qbn_tpu_torch.ops.stochastic import (
@@ -521,12 +522,17 @@ class ConvBlock(nn.Module):
     def _batch_norm(self, y, p, stats, train, update, mutable):
         """Batch norm over (B, H, W): batch statistics (biased variance) in
         training, the running ones in evaluation; with `update` the
-        running variance moves toward the UNBIASED batch variance."""
+        running variance moves toward the UNBIASED batch variance. In a
+        data-parallel forward the statistics are the global batch's."""
         if train:
-            m = torch.mean(y, dim=(0, 1, 2))
-            v = torch.var(y, dim=(0, 1, 2), correction=0)
-            if update:
+            group = data_group()
+            if group is None:
+                m = torch.mean(y, dim=(0, 1, 2))
+                v = torch.var(y, dim=(0, 1, 2), correction=0)
                 n = y.shape[0] * y.shape[1] * y.shape[2]
+            else:
+                m, v, n = global_moments(y, (0, 1, 2), group)
+            if update:
                 unbiased = v.detach() * n / max(n - 1, 1)
                 mom = self.bn_momentum
                 _write(mutable, "batch_stats", "mean",

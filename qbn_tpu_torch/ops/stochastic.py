@@ -14,6 +14,18 @@ mask source in the same way: `BernoulliMasks` (a torch.Generator) or
 draw from a key tensor (seed, offset) through the operator
 `qbn_tpu_torch::seeded_draw`, so that an exported predictor's draws follow
 its `seed` input.
+
+A draw is one of two kinds, and the layer says which: a whole draw (a
+weight sample, `noise(shape, device)`) or a per-row draw, one row per
+example of the batch (the local-reparametrisation noise,
+`noise_rows(noise, shape, device)`; every dropout mask is per row).
+In a data-parallel step each rank sees its rows of the global batch
+through `RowNoise` and `RowMasks`: they draw the global batch's rows from
+the replicated source and keep the rank's, and take whole draws whole, so
+that the sharded step sees the draws of the one-process step.
+`SampleMasks` keeps a rank's samples of (S, *shape) masks (the
+sample-sharded MC evaluation). `DrawLog` records the calls of a forward
+(for replaying them at another batch size).
 """
 
 from __future__ import annotations
@@ -101,6 +113,92 @@ class QueueMasks:
         return mask.to(device=device, dtype=torch.float32)
 
 
+def noise_rows(noise, shape, device) -> torch.Tensor:
+    """A per-row draw of standard normals: axis 0 of `shape` is the
+    batch. A row view (`RowNoise`) draws the global batch and keeps its
+    rows; any other source draws `shape`."""
+    rows = getattr(noise, "rows", None)
+    return noise(shape, device) if rows is None else rows(shape, device)
+
+
+class RowNoise:
+    """A rank's view of a noise source in a data-parallel step: rows
+    `rows` (a slice) of a global batch of `total`. A whole draw is the
+    source's; a per-row draw is drawn for `total` rows and sliced."""
+
+    def __init__(self, source, rows: slice, total: int):
+        self.source, self.slice, self.total = source, rows, total
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        return self.source(shape, device)
+
+    def rows(self, shape, device) -> torch.Tensor:
+        full = noise_rows(self.source, (self.total, *shape[1:]), device)
+        return full[self.slice]
+
+
+class RowMasks:
+    """A rank's view of a mask source in a data-parallel step: each
+    site's (S, total, ...) masks drawn for the global batch, the rows
+    `rows` of axis 1 kept."""
+
+    def __init__(self, source, rows: slice, total: int):
+        self.source, self.slice, self.total = source, rows, total
+
+    def __call__(self, shape, keep: float, device) -> torch.Tensor:
+        full = self.source((self.total, *shape[1:]), keep, device)
+        return full[:, self.slice]
+
+
+class SampleMasks:
+    """Samples `samples` (a slice) of a mask source's (S, *shape) masks:
+    a rank's share of the sample axis."""
+
+    def __init__(self, source, samples: slice):
+        self.source, self.slice = source, samples
+
+    def __call__(self, shape, keep: float, device) -> torch.Tensor:
+        return self.source(shape, keep, device)[self.slice]
+
+
+class DrawLog:
+    """Stands in for a noise source (itself) and a mask source (`masks`,
+    of `samples` samples) and records their calls in order: ("noise",
+    shape), ("rows", shape) or ("masks", shape, keep). Noise comes back
+    as zeros, masks as ones. `replay` makes the same draws from real
+    sources, the per-row ones at another batch size."""
+
+    def __init__(self, samples: int = 1):
+        self.calls: list = []
+        self.samples = samples
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        self.calls.append(("noise", tuple(shape)))
+        return torch.zeros(tuple(shape), device=device)
+
+    def rows(self, shape, device) -> torch.Tensor:
+        self.calls.append(("rows", tuple(shape)))
+        return torch.zeros(tuple(shape), device=device)
+
+    def masks(self, shape, keep: float, device) -> torch.Tensor:
+        self.calls.append(("masks", tuple(shape), keep))
+        return torch.ones((self.samples, *shape), device=device)
+
+    def replay(self, noise, masks, batch: int, device):
+        """The recorded draws from `noise` and `masks`, per-row ones at
+        `batch` rows, in call order (a list of tensors)."""
+        out = []
+        for call in self.calls:
+            kind, shape = call[0], (batch, *call[1][1:])
+            if kind == "noise":
+                out.append(noise(call[1], device))
+            elif kind == "rows":
+                out.append(noise_rows(noise, shape, device))
+            else:
+                out.append(masks(shape, call[2], device))
+        return out
+
+
 def _seeded_draw(key, stream, shape, normal):
     """Standard normals (or uniforms in [0, 1)) of `shape` from a
     torch.Generator on the key's device seeded with a 64-bit digest of
@@ -186,7 +284,7 @@ def local_reparam_dense(x, w, sp_std, noise, bias=None):
     mean = torch.matmul(x, w)
     var = torch.matmul(torch.square(x), torch.square(sp_std))
     std = torch.sqrt(VAR_EPS + var)
-    out = mean + std * noise(mean.shape, mean.device)
+    out = mean + std * noise_rows(noise, mean.shape, mean.device)
     if bias is not None:
         out = out + bias
     return out
@@ -225,7 +323,7 @@ def local_reparam_dense_auto(x, w, sp_std, noise, bias=None,
     the noise is drawn outside the kernel, in the same (B, out) shape as
     the plain path draws it, so the two agree given the same source."""
     if fused and x.ndim == 2:
-        eps = noise((x.shape[0], w.shape[1]), x.device)
+        eps = noise_rows(noise, (x.shape[0], w.shape[1]), x.device)
         out = LocalReparamDenseFused.apply(x, w, sp_std, eps)
         return out + bias if bias is not None else out
     return local_reparam_dense(x, w, sp_std, noise, bias)
@@ -252,7 +350,7 @@ def local_reparam_conv(x, w, sp_std, noise, strides, padding: int,
     mean = conv_nhwc(x, w, strides, padding)
     var = conv_nhwc(torch.square(x), torch.square(sp_std), strides, padding)
     std = torch.sqrt(VAR_EPS + var)
-    out = mean + std * noise(mean.shape, mean.device)
+    out = mean + std * noise_rows(noise, mean.shape, mean.device)
     if bias is not None:
         out = out + bias
     return out

@@ -23,6 +23,7 @@ import weakref
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 log = logging.getLogger(__name__)
@@ -52,7 +53,8 @@ TRACE_FILE = "trace.json"
 @contextlib.contextmanager
 def trace(log_dir: Optional[str], enabled: bool = True):
     """torch.profiler trace of the enclosed work, written to
-    <log_dir>/trace.json; a no-op when disabled."""
+    <log_dir>/trace.json (by rank r > 0 of a process group,
+    trace_rank<r>.json); a no-op when disabled."""
     if not enabled or not log_dir:
         yield
         return
@@ -63,7 +65,9 @@ def trace(log_dir: Optional[str], enabled: bool = True):
     with profile(activities=activities) as prof:
         yield
     os.makedirs(log_dir, exist_ok=True)
-    path = os.path.join(log_dir, TRACE_FILE)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    path = os.path.join(log_dir, TRACE_FILE if rank == 0 else
+                        TRACE_FILE.replace(".json", f"_rank{rank}.json"))
     prof.export_chrome_trace(path)
     log.info("profiler trace written to %s", path)
 

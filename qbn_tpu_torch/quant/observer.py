@@ -7,13 +7,17 @@ are carried in 'batch_stats'. The first update adopts the batch extrema
 (the state starts at +-inf as a sentinel); later updates move each
 extremum by 0.01 of its distance to the batch's. The qparams widen the
 range to include zero, floor the scale at float32 eps, and round and clamp
-the zero point.
+the zero point. Inside a data-parallel forward (ops/collectives.py) the
+batch extrema are those of the global batch: an all-reduce over the
+ranks' rows before the moving average.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from qbn_tpu_torch.ops.collectives import data_group, global_extrema
 
 AVERAGING_CONSTANT = 0.01
 SCALE_EPS = float(np.finfo(np.float32).eps)
@@ -30,6 +34,9 @@ def obs_update(state, x, averaging_constant: float = AVERAGING_CONSTANT):
     returns the new state (no gradient flows into it)."""
     x = x.detach().to(torch.float32)
     mn, mx = torch.min(x), torch.max(x)
+    group = data_group()
+    if group is not None:
+        mn, mx = global_extrema(mn, mx, group)
     old_mn, old_mx = state["min_val"], state["max_val"]
     fresh = torch.isinf(old_mn)
     return {"min_val": torch.where(

@@ -73,21 +73,12 @@ def _slice(tree, lo: int, hi: int):
     return tree[lo:hi]
 
 
-def _sample_major(outs):
-    """Merged-layout outputs (S, B, ...) as views of (B, S, ...) -> those
-    (B, S, ...) tensors."""
-    return (tuple(o.transpose(0, 1) for o in outs) if isinstance(outs, tuple)
-            else outs.transpose(0, 1))
-
-
 def _cat_samples(parts):
-    """Chunks' merged-layout outputs, (B, chunk, ...) each, concatenated
-    into (B, S, ...) and returned as the (S, B, ...) view that one
-    unchunked forward gives."""
+    """Chunks' outputs, (chunk, B, ...) each, joined along the sample axis
+    (`aggregate` reduces them as one unchunked forward's)."""
     if isinstance(parts[0], tuple):
-        return tuple(torch.cat(p, dim=1).transpose(0, 1)
-                     for p in zip(*parts))
-    return torch.cat(parts, dim=1).transpose(0, 1)
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 class Predictor(nn.Module):
@@ -163,9 +154,9 @@ class Predictor(nn.Module):
                 codes = draw_layers(pack, key=seed_key(seed, DRAW_STREAM))
             sampled = sampled_tree(self.plan, codes)
             k = self.chunk or n
-            parts = [_sample_major(mc_predict(
+            parts = [mc_predict(
                 self.model, state, x, samples=k, mode="int", plan=self.plan,
-                presampled=_slice(sampled, c, c + k)))
+                presampled=_slice(sampled, c, c + k))
                 for c in range(0, n, k)]
             return aggregate(_cat_samples(parts), self.task)
 

@@ -10,7 +10,9 @@
   regression ('batch'):      as above without n_points/multiplier and with
                              KL / (batch * n_batches)
 
-Each returns (loss, main_obj, kl_term).
+Each returns (loss, main_obj, kl_term). `batch` is target.shape[0]
+unless given (a data-parallel step's global batch, whose rows a rank
+holds only some of).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 
 def classification_loss(probs, target, kl, gamma, n_batches, n_points,
-                        scaling: str = "batch", loss_multiplier: float = 1.0):
+                        scaling: str = "batch", loss_multiplier: float = 1.0,
+                        batch=None):
     """Negative log likelihood of (B, C) softmax outputs for (B,) integer
     labels + the scaled KL."""
     logp = torch.log(probs + 1e-8)
@@ -29,7 +32,7 @@ def classification_loss(probs, target, kl, gamma, n_batches, n_points,
         kl_term = kl / n_batches
     elif scaling == "batch":
         ce = nll
-        kl_term = kl / (target.shape[0] * n_batches)
+        kl_term = kl / ((batch or target.shape[0]) * n_batches)
     else:
         raise NotImplementedError("Other scaling not implemented!")
     loss = ce + gamma * kl_term
@@ -37,7 +40,8 @@ def classification_loss(probs, target, kl, gamma, n_batches, n_points,
 
 
 def regression_loss(output, target, kl, gamma, n_batches, n_points,
-                    scaling: str = "batch", loss_multiplier: float = 1.0):
+                    scaling: str = "batch", loss_multiplier: float = 1.0,
+                    batch=None):
     """Heteroscedastic Gaussian NLL of output = (mean, var), each (B, D),
     + the scaled KL."""
     mean, var = output
@@ -49,7 +53,7 @@ def regression_loss(output, target, kl, gamma, n_batches, n_points,
         het = n_points * het * loss_multiplier
         kl_term = kl / n_batches
     elif scaling == "batch":
-        kl_term = kl / (target.shape[0] * n_batches)
+        kl_term = kl / ((batch or target.shape[0]) * n_batches)
     else:
         raise NotImplementedError("Other scaling not implemented!")
     loss = het + gamma * kl_term

@@ -6,7 +6,11 @@ predictive entropy (-sum p*log(p+1e-8) / N), and the 10-bin l1 expected
 calibration error binned on max-probability confidence (torchmetrics
 CalibrationError(n_bins=10, norm='l1') semantics). Regression: the
 Gaussian NLL of the predictive (mean, var), squared and absolute error.
-Each is a (sum, count) accumulator updated per batch.
+Each is a (sum, count) accumulator updated per batch. Under a data
+group (a sharded step, parallel/sharded.py) a batch's increment is
+summed over the ranks' rows (`all_reduce`, the ECE bins included) before
+it is added, so that the state, and what `*_compute` reads from it, is
+the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from qbn_tpu_torch.ops.collectives import all_reduce_sum
 
 ECE_BINS = 10
 
@@ -66,6 +72,18 @@ def cls_metrics_update(state, probs, target):
         "ece_acc": state["ece_acc"] + torch.sum(hits * correct[:, None], 0),
         "ece_count": state["ece_count"] + torch.sum(hits, 0),
     }
+
+
+def all_reduce(state, group):
+    """A metric state (or a batch's increment) summed over the ranks of
+    `group`: every leaf is a sum, reduced in one all-reduce."""
+    keys = list(state)
+    return dict(zip(keys, all_reduce_sum([state[k] for k in keys], group)))
+
+
+def add(state, inc):
+    """Two metric states added leaf by leaf."""
+    return {k: state[k] + inc[k] for k in state}
 
 
 def cls_metrics_compute(state):

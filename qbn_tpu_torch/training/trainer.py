@@ -19,14 +19,26 @@ collections keep their values. Validation runs eval forwards
 (train=False); in 'qat' mode they update the observers (never the
 running statistics), as qbn_tpu's QAT validation does.
 
-qbn_tpu's device-resident epoch scans and mesh-sharded steps are not
-ported; the loop runs over (x, y) batches, a loader's afresh each epoch.
-With cfg.debug every pass stops after its first batch, as qbn_tpu's
-does.
+With a process group (`group`), the step is one rank's share of a
+data-parallel step (parallel/sharded.py): the forward runs under
+`ops.collectives.data_parallel` (batch norm and the observers reduce over
+the group), the gradients and the loss are summed over the ranks in one
+all-reduce and divided by the group's size (the KL term, the same on
+every rank, so counts once), the non-finite gradients are zeroed after
+it, the skip follows the global loss, so every rank keeps or drops the
+update together, and the metric increment is summed over the ranks.
+
+qbn_tpu's device-resident epoch scans are not ported; the loop runs over
+(x, y) batches, a loader's afresh each epoch. With cfg.debug every pass
+stops after its first batch, as qbn_tpu's does. With a mesh, the
+Trainer takes the sharded steps where a batch divides over the mesh's
+devices (qbn_tpu's gate) and the one-process steps, on every rank alike,
+where it does not; rank 0 alone writes the checkpoints and the scalars.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -35,6 +47,7 @@ from typing import Iterable, Optional
 import torch
 
 from qbn_tpu_torch.config import Config
+from qbn_tpu_torch.ops.collectives import all_reduce_sum, data_parallel
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.training.checkpoint import checkpoint_path, save_variables
@@ -82,19 +95,58 @@ def _detached(out):
         else out.detach()
 
 
+def _update_metrics(task, metric_state, out, y, group):
+    """The metric state with one batch added; with a group, the batch's
+    increment summed over the ranks first."""
+    if group is None:
+        return metrics_update(task, metric_state, out, y)
+    inc = metrics_update(task, metrics_init(task, y.device), out, y)
+    return M.add(metric_state, M.all_reduce(inc, group))
+
+
+def apply_update(tx, state: TrainState, grads, loss, new_vars):
+    """The end of a training step, without autograd: (params, model
+    state, optimiser state) after the update of `grads` (a list in the
+    order of the params' leaves), or the old ones where the loss is not
+    finite."""
+    # zero non-finite grads; skip the whole step on a non-finite loss
+    # (qbn_tpu/training/trainer.py:98-127), the running statistics and
+    # observers included: one overflowing batch would otherwise poison
+    # them for good
+    grads = tree_unflatten(state.params, iter(
+        torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        for g in grads))
+    ok = torch.isfinite(loss)
+
+    def keep(new, old):
+        return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+
+    params = tree_map(torch.Tensor.detach, state.params)
+    upd, new_opt = tx.update(grads, state.opt_state, params)
+    new_params = keep(tree_map(torch.add, params, upd), params)
+    new_opt = keep(new_opt, state.opt_state)
+    model_state = dict(state.model_state)
+    for col in STATS:
+        if new_vars.get(col) is not state.model_state.get(col):
+            model_state[col] = keep(new_vars[col], state.model_state[col])
+    return new_params, model_state, new_opt
+
+
 def make_train_step(model, cfg: Config, tx, mode: str, n_batches: int,
-                    n_points: int):
+                    n_points: int, group=None):
     """The training step: step(state, metric_state, x, y, noise, masks) ->
     (state, metric_state, logs), x (B, ...) float32 and y (B,) int64
     labels or (B, 1) float32 targets on the params' device, noise a noise
     source, masks a mask source (for MC-Dropout; one mask per site and
-    step)."""
+    step). group: the process group of a data-parallel step (see the
+    module docstring); x and y are then this rank's rows."""
     task = cfg.task
     loss_fn = (classification_loss if task == "classification"
                else regression_loss)
 
     def step(state: TrainState, metric_state, x, y, noise, masks=None):
-        with full_float32():
+        with full_float32(), (data_parallel(group) if group is not None
+                              else contextlib.nullcontext()):
             out, kl, new_vars = apply_model(
                 model, {"params": state.params, **state.model_state}, x,
                 train=True, mode=mode, update_stats=True, noise=noise,
@@ -102,32 +154,21 @@ def make_train_step(model, cfg: Config, tx, mode: str, n_batches: int,
             loss, main, kl_t = loss_fn(
                 out, y, kl, cfg.gamma, n_batches, n_points,
                 scaling=cfg.loss_scaling,
-                loss_multiplier=cfg.loss_multiplier)
+                loss_multiplier=cfg.loss_multiplier,
+                batch=None if group is None
+                else len(y) * torch.distributed.get_world_size(group))
             grads = torch.autograd.grad(loss, list(tree_leaves(state.params)))
+        if group is not None:
+            # the global batch's mean loss and gradient: each rank's is
+            # the mean over its rows (plus the replicated KL term)
+            n = torch.distributed.get_world_size(group)
+            *grads, loss, main = (t / n for t in all_reduce_sum(
+                [*grads, loss.detach(), main.detach()], group))
         with torch.no_grad():
-            # zero non-finite grads; skip the whole step on a non-finite
-            # loss (qbn_tpu/training/trainer.py:98-127), the running
-            # statistics and observers included: one overflowing batch
-            # would otherwise poison them for good
-            grads = tree_unflatten(state.params, iter(
-                torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-                for g in grads))
-            ok = torch.isfinite(loss)
-
-            def keep(new, old):
-                return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
-
-            params = tree_map(torch.Tensor.detach, state.params)
-            upd, new_opt = tx.update(grads, state.opt_state, params)
-            new_params = keep(tree_map(torch.add, params, upd), params)
-            new_opt = keep(new_opt, state.opt_state)
-            model_state = dict(state.model_state)
-            for col in STATS:
-                if new_vars.get(col) is not state.model_state.get(col):
-                    model_state[col] = keep(new_vars[col],
-                                            state.model_state[col])
-            metric_state = metrics_update(task, metric_state, _detached(out),
-                                          y)
+            new_params, model_state, new_opt = apply_update(
+                tx, state, grads, loss, new_vars)
+            metric_state = _update_metrics(task, metric_state,
+                                           _detached(out), y, group)
         new_params = tree_map(lambda p: p.requires_grad_(), new_params)
         logs = {"obj": loss.detach(), "main_obj": main.detach(),
                 "kl": kl_t.detach()}
@@ -137,21 +178,26 @@ def make_train_step(model, cfg: Config, tx, mode: str, n_batches: int,
     return step
 
 
-def make_eval_step(model, cfg: Config, mode: str, update_observers: bool):
+def make_eval_step(model, cfg: Config, mode: str, update_observers: bool,
+                   group=None):
     """The validation step: step(state, metric_state, x, y, noise, masks)
     -> (state, metric_state); no gradient, no running-statistics update;
-    the observers update iff update_observers (QAT validation)."""
+    the observers update iff update_observers (QAT validation). group: as
+    for make_train_step."""
     task = cfg.task
 
     def step(state: TrainState, metric_state, x, y, noise, masks=None):
-        with torch.no_grad(), full_float32():
+        with torch.no_grad(), full_float32(), (
+                data_parallel(group) if group is not None
+                else contextlib.nullcontext()):
             out, _kl, new_vars = apply_model(
                 model, {"params": state.params, **state.model_state}, x,
                 train=False, mode=mode, update_stats=update_observers,
                 noise=noise, masks=masks)
             model_state = {k: v for k, v in new_vars.items()
                            if k != "params"}
-            metric_state = metrics_update(task, metric_state, out, y)
+            metric_state = _update_metrics(task, metric_state, out, y,
+                                           group)
         return dataclasses.replace(state, model_state=model_state), \
             metric_state
 
@@ -163,20 +209,44 @@ class Trainer:
 
     `train_loop` writes its checkpoints to cfg.save (None: nowhere);
     writer: a ScalarWriter (evaluation/writer.py) that receives the
-    epoch's train/* and valid/* metrics."""
+    epoch's train/* and valid/* metrics. mesh: a parallel.mesh.Mesh (the
+    device is then the mesh's; every rank runs the same loop over the
+    same global batches, and rank 0 alone writes)."""
+
+    mesh = None
 
     def __init__(self, model, cfg: Config, tx, mode: str, n_batches: int,
                  n_points: int, noise, device="cuda", masks=None,
-                 writer=None):
+                 writer=None, mesh=None):
         self.model, self.cfg, self.tx, self.mode = model, cfg, tx, mode
         self.noise, self.masks = noise, masks
         self.device = resolve_device(device)
         self.writer = writer
+        self.mesh = mesh
         self.train_step = make_train_step(model, cfg, tx, mode, n_batches,
                                           n_points)
         self.eval_step = make_eval_step(model, cfg, mode,
                                         update_observers=mode == "qat")
+        if mesh is not None:
+            from qbn_tpu_torch.parallel import (
+                make_sharded_eval_step, make_sharded_train_step)
+            self.sharded_train_step = make_sharded_train_step(
+                model, cfg, tx, mode, n_batches, n_points, mesh)
+            self.sharded_eval_step = make_sharded_eval_step(
+                model, cfg, mode, mode == "qat", mesh)
         self.history: list = []
+
+    def _pick(self, train: bool, x, y):
+        """The step for a batch and its inputs: the sharded step and this
+        rank's rows when the batch divides over the mesh's devices
+        (qbn_tpu's gate, the total device count on a 2-D mesh); else the
+        one-process step on the whole batch, on every rank alike."""
+        if self.mesh is not None and len(y) % self.mesh.size == 0:
+            from qbn_tpu_torch.parallel import shard_batch
+            x, y = shard_batch((x, y), self.mesh)
+            return (self.sharded_train_step if train
+                    else self.sharded_eval_step), x, y
+        return (self.train_step if train else self.eval_step), x, y
 
     def init_state(self, variables) -> TrainState:
         """The state of a variable tree on the trainer's device: params as
@@ -207,8 +277,8 @@ class Trainer:
         metric_state = metrics_init(task, self.device)
         logs = {}
         for i, (x, y) in enumerate(batches):
-            x, y = self._tensors(x, y)
-            state, metric_state, logs = self.train_step(
+            step, x, y = self._pick(True, *self._tensors(x, y))
+            state, metric_state, logs = step(
                 state, metric_state, x, y, self.noise, self.masks)
             if i % self.cfg.report_freq == 0 and i > 0:
                 log.info("train step %d obj=%.4f", i, float(logs["obj"]))
@@ -234,9 +304,9 @@ class Trainer:
             (self.cfg.seed + 17) * 1_000_003 + seed * 100_003)
         noise, masks = GeneratorNoise(gen), BernoulliMasks(gen, 1)
         for x, y in batches:
-            x, y = self._tensors(x, y)
-            state, metric_state = self.eval_step(state, metric_state, x, y,
-                                                 noise, masks)
+            step, x, y = self._pick(False, *self._tensors(x, y))
+            state, metric_state = step(state, metric_state, x, y, noise,
+                                       masks)
             if self.cfg.debug:
                 break
         return state, {k: float(v) for k, v in metrics_compute(
@@ -248,6 +318,8 @@ class Trainer:
                        else "rmse"]
 
     def _save(self, state: TrainState, special_info: str) -> None:
+        if self.mesh is not None and not self.mesh.is_main:
+            return
         save_variables(self.variables(state),
                        checkpoint_path(self.cfg.save, special_info))
 

@@ -55,8 +55,32 @@ def test_new_sources_scanned():
                 "qbn_tpu_torch/serving/__main__.py",
                 "qbn_tpu_torch/profiling.py", "qbn_tpu_torch/sweep.py",
                 "qbn_tpu_torch/average_results.py", "qbn_tpu_torch/cli.py",
-                "qbn_tpu_torch/evaluation/presentation.py"):
+                "qbn_tpu_torch/evaluation/presentation.py",
+                "qbn_tpu_torch/parallel/__init__.py",
+                "qbn_tpu_torch/parallel/mesh.py",
+                "qbn_tpu_torch/parallel/sharded.py",
+                "qbn_tpu_torch/parallel/sweep.py",
+                "qbn_tpu_torch/ops/collectives.py"):
         assert rel in names, rel
+
+
+LOWER = [p for p in SOURCES if p.parent.name in (
+    "ops", "models", "quant", "training")]
+
+
+@pytest.mark.parametrize("path", LOWER,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_lower_layers_import_no_parallel(path):
+    """The layers, ops, observers and training steps sit below
+    qbn_tpu_torch.parallel (the mesh and its launcher): none imports it
+    when it is imported (a step that takes a mesh imports it inside)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = [n.module for n in tree.body
+            if isinstance(n, ast.ImportFrom) and n.module]
+    mods += [a.name for n in tree.body if isinstance(n, ast.Import)
+             for a in n.names]
+    bad = [m for m in mods if m.startswith("qbn_tpu_torch.parallel")]
+    assert not bad, f"{path} imports {bad}"
 
 
 def _entry_points():
