@@ -9,7 +9,8 @@ there with tensor ops (pure copies and float32 elementwise arithmetic,
 so the batches equal qbn_tpu's bit for bit). Like torch's DataLoader, and
 qbn_tpu's, the ragged last batch is kept, and `dataset_size` is the size
 of the dataset before the valid split (the n_points of 'whole' loss
-scaling).
+scaling). Each batch up to its yield is a span `loader.batch`, its
+uploads a span `loader.upload` (profiling.span).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from qbn_tpu_torch.data import datasets as D
 from qbn_tpu_torch.data.distortions import apply_distortion
+from qbn_tpu_torch.profiling import span
 from qbn_tpu_torch.utils import resolve_device
 
 log = logging.getLogger(__name__)
@@ -90,16 +92,20 @@ class ArrayLoader:
         n = len(self.x)
         idx = self.rng.permutation(n) if self.shuffle else np.arange(n)
         for b in range(self._len):
-            sel = idx[b * self.batch_size: (b + 1) * self.batch_size]
-            # C order: the CIFAR and SVHN readers' arrays are transposed
-            # views, and the INT path's kernels take contiguous NHWC codes
-            xb = torch.from_numpy(np.ascontiguousarray(self.x[sel])).to(
-                self.device)
-            if self.augment:
-                xb = augment_cifar(xb, *cifar_augment_params(self.rng,
-                                                             len(sel)))
-            xb = D.normalize(xb, self.normalize)
-            yield xb, torch.from_numpy(self.y[sel]).to(self.device)
+            with span("loader.batch"):
+                sel = idx[b * self.batch_size: (b + 1) * self.batch_size]
+                # C order: the CIFAR and SVHN readers' arrays are
+                # transposed views, and the INT path's kernels take
+                # contiguous NHWC codes
+                xh, yh = np.ascontiguousarray(self.x[sel]), self.y[sel]
+                with span("loader.upload"):
+                    xb = torch.from_numpy(xh).to(self.device)
+                    yb = torch.from_numpy(yh).to(self.device)
+                if self.augment:
+                    xb = augment_cifar(xb, *cifar_augment_params(self.rng,
+                                                                 len(sel)))
+                xb = D.normalize(xb, self.normalize)
+            yield xb, yb
 
 
 def _train_valid_split(x, y, valid_portion: float, seed: int):

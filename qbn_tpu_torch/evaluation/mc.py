@@ -33,6 +33,10 @@ With a mesh (parallel/mesh.py), each takes the sample-sharded evaluation
 of parallel/sharded.py when the samples divide over the mesh's devices
 and exceed 1 (qbn_tpu's gate): every rank computes its share of the
 samples, and every rank ends with the one-process result.
+
+Spans (profiling.span): each batch of `evaluate` is `mc.batch`, with
+`mc.upload`, `mc.draw` and `mc.forward` (in `mc_predict`), `mc.aggregate`
+(the predictive and the metric update) and `mc.sync` inside.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from qbn_tpu_torch.evaluation.ensemble import member, members
 from qbn_tpu_torch.models.architectures import ResNet
 from qbn_tpu_torch.ops.sample_weights import QPARAM_KEYS, draw_layers, pack_layers
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
+from qbn_tpu_torch.profiling import span
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.utils import full_float32, resolve_device
 
@@ -160,33 +165,40 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
     eval forward): `float_predict`, with `noise` (BBB) and `masks`
     (MC-Dropout) as its sources, else drawn from `generator`."""
     if mode in ("float", "qat"):
-        return float_predict(model, state, x, samples=samples,
-                             generator=generator, ensemble=ensemble,
-                             noise=noise, masks=masks, mode=mode)
+        with span("mc.forward"):
+            return float_predict(model, state, x, samples=samples,
+                                 generator=generator, ensemble=ensemble,
+                                 noise=noise, masks=masks, mode=mode)
     if mode != "int":
         raise ValueError(f"unknown mode '{mode}'")
     if ensemble:
         if members(state) != samples:
             raise ValueError(f"an ensemble of {members(state)} members "
                              f"evaluated as {samples} samples")
-        outs = [_forward(model, x, member(state, m), up_to=up_to)
-                for m in range(samples)]
+        with span("mc.forward"):
+            outs = [_forward(model, x, member(state, m), up_to=up_to)
+                    for m in range(samples)]
         if up_to is not None:
             return outs
         return _stack(outs)
     if model.stochastic:
         if presampled is None:
-            presampled = draw_sampled_weights(
-                state, plan or presample_plan(state), samples, generator)
-        out = _forward(model, x, {**state, "sampled": presampled},
-                       up_to=up_to)
+            with span("mc.draw"):
+                presampled = draw_sampled_weights(
+                    state, plan or presample_plan(state), samples,
+                    generator)
+        with span("mc.forward"):
+            out = _forward(model, x, {**state, "sampled": presampled},
+                           up_to=up_to)
         if up_to is not None:
             return out
         return _each(out, lambda o: o.transpose(0, 1))   # (B, S) -> (S, B)
-    if model.dropout_p > 0:
-        return _forward(model, x, state, up_to=up_to,
-                        masks=masks or BernoulliMasks(generator, samples))
-    out = _forward(model, x, state, up_to=up_to)
+    with span("mc.forward"):
+        if model.dropout_p > 0:
+            return _forward(model, x, state, up_to=up_to,
+                            masks=masks or BernoulliMasks(generator,
+                                                          samples))
+        out = _forward(model, x, state, up_to=up_to)
     if up_to is not None:
         return out
     return _each(out, lambda o: o.unsqueeze(0).expand(samples, *o.shape))
@@ -284,24 +296,30 @@ def evaluate(model, state, batches: Iterable, samples: int,
     with torch.no_grad(), (full_float32() if mode == "float"
                            else contextlib.nullcontext()):
         for x, y in batches:
-            t0 = time.perf_counter()
-            x = torch.as_tensor(x, dtype=torch.float32,
-                                device=device).contiguous()
-            y = torch.as_tensor(y, device=device,
-                                dtype=torch.float32 if regression
-                                else torch.int64)
-            outs = predict(model, state, x, samples=samples, plan=plan,
-                           generator=generator, masks=masks,
-                           ensemble=method == "sgld", mode=mode)
-            agg = aggregate(outs, model.task)
-            if regression:
-                metric_state = M.reg_metrics_update(metric_state, *agg, y)
-            else:
-                metric_state = M.cls_metrics_update(metric_state, agg, y)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            seconds.append(time.perf_counter() - t0)
-            outputs.append(agg)
+            with span("mc.batch"):
+                t0 = time.perf_counter()
+                with span("mc.upload"):
+                    x = torch.as_tensor(x, dtype=torch.float32,
+                                        device=device).contiguous()
+                    y = torch.as_tensor(y, device=device,
+                                        dtype=torch.float32 if regression
+                                        else torch.int64)
+                outs = predict(model, state, x, samples=samples, plan=plan,
+                               generator=generator, masks=masks,
+                               ensemble=method == "sgld", mode=mode)
+                with span("mc.aggregate"):
+                    agg = aggregate(outs, model.task)
+                    if regression:
+                        metric_state = M.reg_metrics_update(metric_state,
+                                                            *agg, y)
+                    else:
+                        metric_state = M.cls_metrics_update(metric_state,
+                                                            agg, y)
+                with span("mc.sync"):
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                seconds.append(time.perf_counter() - t0)
+                outputs.append(agg)
     return metric_state, outputs, seconds
 
 

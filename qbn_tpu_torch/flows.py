@@ -45,7 +45,10 @@ layers) runs the CUDA kernel of `ops/bbb_dense.py`.
 cfg.debug_nans turns on `profiling.nan_debugging` for `train_loop` (the
 first non-finite module output raises, naming the module; the mode ends
 with the loop); cfg.profile writes a torch.profiler trace of
-`train_loop` to <save_dir>/profile/trace.json.
+`train_loop` to <save_dir>/profile/trace.json, which carries the
+program's spans (profiling.span: the loader's batches, the training
+steps with their forward, backward and update, the operators) as
+ranges.
 
 With cfg.mesh_shape, every flow runs in each rank of a launched group
 (parallel/mesh.py; `run.py --mesh_shape` launches them): the mesh comes

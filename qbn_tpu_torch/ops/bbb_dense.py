@@ -8,11 +8,12 @@ posterior mean, sp (K, N) softplus'd posterior std, eps (B, N) standard
 normals. On a CUDA tensor `bbb_dense` launches the hand-written kernel of
 `csrc/bbb_dense.cu` (3xTF32 products on the tensor cores, fed by a
 cp.async ring; it shares the x tile between the two products and splits K
-across CTAs so that the grid fills the card) or raises; there is
-no fallback. On a CPU tensor it runs `bbb_dense_plain`. eps comes from
-`noise`, or, without it, from a Philox stream inside the kernel keyed by a
-seed and offset taken from the caller's torch.Generator (on the CPU,
-`torch.randn` from that generator).
+across CTAs so that the grid fills the card; the host's checks and launch
+are the span `op.bbb_dense`) or raises; there is no fallback. On a CPU
+tensor it runs `bbb_dense_plain`. eps comes from `noise`, or, without it,
+from a Philox stream inside the kernel keyed by a seed and offset taken
+from the caller's torch.Generator (on the CPU, `torch.randn` from that
+generator).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 import torch
 
 from qbn_tpu_torch.ops import _build
+from qbn_tpu_torch.profiling import span
 
 VAR_EPS = 1e-8
 
@@ -101,36 +103,37 @@ def bbb_dense(x, w, sp, noise: Optional[torch.Tensor] = None,
             noise = torch.randn((b, n), generator=generator)
         return bbb_dense_plain(x, w, sp, noise)
 
-    dev = x.device
-    for t, name, shape in ((x, "x", (b, k)), (w, "w", (k, n)),
-                           (sp, "sp", (k, n))):
-        _check(t, name, shape, dev)
-    seed = offset = 0
-    if noise is not None:
-        _check(noise, "noise", (b, n), dev)
-    else:
-        gen_dev = generator.device if generator is not None else "cpu"
-        seed, offset = torch.randint(0, 2 ** 62, (2,), generator=generator,
-                                     device=gen_dev).tolist()
-    fn, (bm, bn, bk, part) = _lib()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, k_chunk = split_k(b, k, n, sms, bm, bn, bk)
-    out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    tiles = math.ceil(b / bm) * math.ceil(n / bn)
-    workspace = counters = None
-    if splits > 1:
-        workspace = torch.empty(tiles * splits * part, dtype=torch.float32,
-                                device=dev)
-        counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), sp.data_ptr(),
-                 None if noise is None else noise.data_ptr(), seed, offset,
-                 out.data_ptr(), b, k, n, splits, k_chunk,
-                 None if workspace is None else workspace.data_ptr(),
-                 None if counters is None else counters.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"qbn_bbb_dense launch failed: cudaError {err}")
-    launches += 1
-    launches_by_kn[(k, n)] += 1
-    return out
+    with span("op.bbb_dense"):
+        dev = x.device
+        for t, name, shape in ((x, "x", (b, k)), (w, "w", (k, n)),
+                               (sp, "sp", (k, n))):
+            _check(t, name, shape, dev)
+        seed = offset = 0
+        if noise is not None:
+            _check(noise, "noise", (b, n), dev)
+        else:
+            gen_dev = generator.device if generator is not None else "cpu"
+            seed, offset = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                                         device=gen_dev).tolist()
+        fn, (bm, bn, bk, part) = _lib()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits, k_chunk = split_k(b, k, n, sms, bm, bn, bk)
+        out = torch.empty((b, n), dtype=torch.float32, device=dev)
+        tiles = math.ceil(b / bm) * math.ceil(n / bn)
+        workspace = counters = None
+        if splits > 1:
+            workspace = torch.empty(tiles * splits * part, dtype=torch.float32,
+                                    device=dev)
+            counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(x.data_ptr(), w.data_ptr(), sp.data_ptr(),
+                     None if noise is None else noise.data_ptr(), seed, offset,
+                     out.data_ptr(), b, k, n, splits, k_chunk,
+                     None if workspace is None else workspace.data_ptr(),
+                     None if counters is None else counters.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"qbn_bbb_dense launch failed: cudaError {err}")
+        launches += 1
+        launches_by_kn[(k, n)] += 1
+        return out

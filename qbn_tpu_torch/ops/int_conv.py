@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from qbn_tpu_torch.ops import _build, library
+from qbn_tpu_torch.profiling import span
 
 _CENTERED_K = (1 << 24) // (254 * 127)           # 520
 _MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
@@ -726,7 +727,8 @@ def _per_sample(w_codes, x_codes, shared_x):
 # and padding to ints, and calls its operator; the operator's CPU
 # implementation runs the plain version, its CUDA implementation checks the
 # operands, plans and launches the kernel (`_launch`: the pointers, the
-# alignments and the SM count are read there, on real tensors).
+# alignments and the SM count are read there, on real tensors), inside the
+# span `op.int_conv` (profiling.span).
 
 def _as_scale(v, dev):
     return v if isinstance(v, torch.Tensor) else \
@@ -770,23 +772,25 @@ def _merged_cpu(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
 def _merged_cuda(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
                  out_zp, stride, pad, a_lo, a_hi, relu, shared_x, residual,
                  res_scale, res_out_scale, res_out_zp, res_relu, design):
-    dev = x_codes.device
-    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp,
-                 *((res_scale, res_out_scale, res_out_zp)
-                   if residual is not None else ()))
-    _stride, _pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
-        x_codes, w_codes, *_pair(stride, pad), shared_x)
-    cout = w_codes.shape[-1]
-    b = x_shape[0]
-    if bias is not None:
-        _check(bias, torch.float32, "bias", (cout,), dev)
-    if residual is not None:
-        _check(residual, torch.int8, "residual", (b, ho, wo, s * cout), dev)
-    out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
-            out, (ho * wo * s * cout, wo * s * cout, s * cout, cout), q, bias,
-            residual, relu, res_relu, a_lo, a_hi, design=design)
-    return out
+    with span("op.int_conv"):
+        dev = x_codes.device
+        q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp,
+                     *((res_scale, res_out_scale, res_out_zp)
+                       if residual is not None else ()))
+        _stride, _pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
+            x_codes, w_codes, *_pair(stride, pad), shared_x)
+        cout = w_codes.shape[-1]
+        b = x_shape[0]
+        if bias is not None:
+            _check(bias, torch.float32, "bias", (cout,), dev)
+        if residual is not None:
+            _check(residual, torch.int8, "residual", (b, ho, wo, s * cout),
+                   dev)
+        out = torch.empty((b, ho, wo, s * cout), dtype=torch.int8, device=dev)
+        _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
+                out, (ho * wo * s * cout, wo * s * cout, s * cout, cout), q,
+                bias, residual, relu, res_relu, a_lo, a_hi, design=design)
+        return out
 
 
 def _merged_fake(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
@@ -867,23 +871,24 @@ def _shared_cpu(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
 
 def _shared_cuda(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
                  out_zp, stride, pad, a_lo, a_hi, relu, design):
-    dev = x_codes.device
-    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
-    kh, kw, cin, cout = w_codes.shape
-    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
-    lead = tuple(x_codes.shape[:-3])
-    b, h, wd = x_codes.shape[-4:-1]
-    _check(x_codes, torch.int8, "x_codes", (*lead, h, wd, cin), dev)
-    if bias is not None:
-        _check(bias, torch.float32, "bias", (cout,), dev)
-    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
-    s = lead[0] if x_codes.ndim == 5 else 1
-    out = torch.empty((*lead, ho, wo, cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, _sample_strides(b, h, wd, cin), (b, h, wd, cin),
-            w_codes, s, stride, pad, (ho, wo), out,
-            (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
-            None, relu, False, a_lo, a_hi, design=design)
-    return out
+    with span("op.int_conv"):
+        dev = x_codes.device
+        q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
+        kh, kw, cin, cout = w_codes.shape
+        _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
+        lead = tuple(x_codes.shape[:-3])
+        b, h, wd = x_codes.shape[-4:-1]
+        _check(x_codes, torch.int8, "x_codes", (*lead, h, wd, cin), dev)
+        if bias is not None:
+            _check(bias, torch.float32, "bias", (cout,), dev)
+        ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
+        s = lead[0] if x_codes.ndim == 5 else 1
+        out = torch.empty((*lead, ho, wo, cout), dtype=torch.int8, device=dev)
+        _launch(x_codes, _sample_strides(b, h, wd, cin), (b, h, wd, cin),
+                w_codes, s, stride, pad, (ho, wo), out,
+                (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
+                None, relu, False, a_lo, a_hi, design=design)
+        return out
 
 
 def _shared_fake(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
@@ -944,21 +949,22 @@ def _group_cpu(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
 
 def _group_cuda(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
                 out_zp, stride, pad, a_lo, a_hi, relu, design):
-    dev = x_codes.device
-    s, kh, kw, cin, cout = w_codes.shape
-    _s, b, h, wd, _c = x_codes.shape
-    q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
-    _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
-    _check(x_codes, torch.int8, "x_codes", (s, b, h, wd, cin), dev)
-    if bias is not None:
-        _check(bias, torch.float32, "bias", (cout,), dev)
-    ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
-    out = torch.empty((s, b, ho, wo, cout), dtype=torch.int8, device=dev)
-    _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
-            (b, h, wd, cin), w_codes, s, stride, pad, (ho, wo), out,
-            (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
-            None, relu, False, a_lo, a_hi, design=design)
-    return out
+    with span("op.int_conv"):
+        dev = x_codes.device
+        s, kh, kw, cin, cout = w_codes.shape
+        _s, b, h, wd, _c = x_codes.shape
+        q = _qparams(dev, x_scale, w_scale, w_zp, out_scale, out_zp)
+        _check(w_codes, torch.int8, "w_codes", w_codes.shape, dev)
+        _check(x_codes, torch.int8, "x_codes", (s, b, h, wd, cin), dev)
+        if bias is not None:
+            _check(bias, torch.float32, "bias", (cout,), dev)
+        ho, wo = _out_hw(h, wd, kh, kw, stride, pad)
+        out = torch.empty((s, b, ho, wo, cout), dtype=torch.int8, device=dev)
+        _launch(x_codes, (h * wd * cin, wd * cin, cin, b * h * wd * cin),
+                (b, h, wd, cin), w_codes, s, stride, pad, (ho, wo), out,
+                (ho * wo * cout, wo * cout, cout, b * ho * wo * cout), q, bias,
+                None, relu, False, a_lo, a_hi, design=design)
+        return out
 
 
 def _group_fake(x_codes, x_scale, w_codes, w_scale, w_zp, bias, out_scale,
@@ -1002,15 +1008,16 @@ def _sums_cpu(x_codes, w_codes, stride, pad, shared_x, design):
 
 
 def _sums_cuda(x_codes, w_codes, stride, pad, shared_x, design):
-    _stride, _pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
-        x_codes, w_codes, *_pair(stride, pad), shared_x)
-    b, cout = x_shape[0], w_codes.shape[-1]
-    dev = x_codes.device
-    acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
-    win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
-    _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
-            None, (0, 0, 0, 0), raw=(acc, win), design=design)
-    return acc, win
+    with span("op.int_conv"):
+        _stride, _pad, s, x_shape, x_strides, (ho, wo) = _merged_geometry(
+            x_codes, w_codes, *_pair(stride, pad), shared_x)
+        b, cout = x_shape[0], w_codes.shape[-1]
+        dev = x_codes.device
+        acc = torch.empty((b, ho, wo, s, cout), dtype=torch.int32, device=dev)
+        win = torch.empty((b, ho, wo, s), dtype=torch.int32, device=dev)
+        _launch(x_codes, x_strides, x_shape, w_codes, s, stride, pad, (ho, wo),
+                None, (0, 0, 0, 0), raw=(acc, win), design=design)
+        return acc, win
 
 
 def _sums_fake(x_codes, w_codes, stride, pad, shared_x, design):

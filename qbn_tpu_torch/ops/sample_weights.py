@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from qbn_tpu_torch.ops import _build, library
+from qbn_tpu_torch.profiling import span
 from qbn_tpu_torch.quant.bounds import NOISE_SCALE
 
 QPARAM_KEYS = ("w_scale", "w_zp", "std_scale", "std_zp", "mul_scale",
@@ -396,33 +397,37 @@ def _draw_cpu(w, std, qtab, meta, tile_layer, key, noise, total):
 
 
 def _draw_cuda(w, std, qtab, meta, tile_layer, key, noise, total):
-    """One launch of the draw kernel over the pack; raises if it fails."""
+    """One launch of the draw kernel over the pack (the span `op.draw`);
+    raises if it fails."""
     global launches
-    dev = w.device
-    for t, dt, name in ((w, torch.int8, "w"), (std, torch.int8, "std"),
-                        (qtab, torch.float32, "qtab"),
-                        (meta, torch.int64, "meta"),
-                        (tile_layer, torch.int32, "tile_layer")):
-        _check(t, dt, name, dev)
-    seed = offset = 0
-    noise_ptr = table_ptr = None
-    if noise is not None:
-        _check(noise, torch.float32, "noise", dev)
-        noise_ptr = noise.data_ptr()
-    else:
-        seed, offset = (int(v) for v in key.tolist())
-        table_ptr = icdf_table(dev).data_ptr()
-    flat = torch.empty(total, dtype=torch.int8, device=dev)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(w.data_ptr(), std.data_ptr(), qtab.data_ptr(),
-                 meta.data_ptr(), tile_layer.data_ptr(), tile_layer.numel(),
-                 noise_ptr, table_ptr, seed, offset, flat.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"qbn_draw_int8 launch failed: cudaError {err}")
-    launches += 1
-    return flat
+    with span("op.draw"):
+        dev = w.device
+        for t, dt, name in ((w, torch.int8, "w"), (std, torch.int8, "std"),
+                            (qtab, torch.float32, "qtab"),
+                            (meta, torch.int64, "meta"),
+                            (tile_layer, torch.int32, "tile_layer")):
+            _check(t, dt, name, dev)
+        seed = offset = 0
+        noise_ptr = table_ptr = None
+        if noise is not None:
+            _check(noise, torch.float32, "noise", dev)
+            noise_ptr = noise.data_ptr()
+        else:
+            seed, offset = (int(v) for v in key.tolist())
+            table_ptr = icdf_table(dev).data_ptr()
+        flat = torch.empty(total, dtype=torch.int8, device=dev)
+        fn = _lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(w.data_ptr(), std.data_ptr(), qtab.data_ptr(),
+                     meta.data_ptr(), tile_layer.data_ptr(),
+                     tile_layer.numel(), noise_ptr, table_ptr, seed, offset,
+                     flat.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"qbn_draw_int8 launch failed: cudaError {err}")
+        launches += 1
+        return flat
 
 
 def _draw_fake(w, std, qtab, meta, tile_layer, key, noise, total):

@@ -23,7 +23,8 @@ artifact (`load_predictor`) needs torch and those operators' registrations
 (importing `qbn_tpu_torch.ops`), not the model code, as qbn_tpu's
 artifact binds to its Mosaic custom call. A CPU export runs the kernels'
 plain versions on the CPU; `LoadedPredictor.to("cuda")` moves it to the
-card, where the same operators launch the kernels.
+card, where the same operators launch the kernels. The export runs with
+the span recorder paused, so that its graph holds no profiler range.
 
 Artifact layout (a directory):
   predictor.pt2  - torch.export.save of the exported program
@@ -49,6 +50,7 @@ from qbn_tpu_torch.evaluation.mc import (
 from qbn_tpu_torch.ops.sample_weights import (
     _unpack, draw_int8, draw_layers, pack_layers)
 from qbn_tpu_torch.ops.stochastic import SeedMasks, SeedNoise
+from qbn_tpu_torch.profiling import paused, span
 from qbn_tpu_torch.training.checkpoint import model_size_mb
 from qbn_tpu_torch.utils import full_float32
 
@@ -209,8 +211,9 @@ def export_predictor(model, state, cfg: Config, *, mode: str, batch: int,
                                ensemble=ensemble, use_plan=use_plan,
                                chunk=chunk, freeze_draws=freeze_draws)
     device = next(iter(predictor.buffers())).device
-    exported = torch.export.export(predictor,
-                                   _example(batch, input_shape, device))
+    with paused():
+        exported = torch.export.export(predictor,
+                                       _example(batch, input_shape, device))
     os.makedirs(path, exist_ok=True)
     blob_path = os.path.join(path, _BLOB)
     torch.export.save(exported, blob_path)
@@ -240,7 +243,9 @@ def export_predictor(model, state, cfg: Config, *, mode: str, batch: int,
 class LoadedPredictor:
     """A loaded serving artifact: `call(x, seed)` runs the exported
     program on its device (full float32 products, as the live predictor
-    runs them)."""
+    runs them); a call is the span `serve.call`, with `serve.upload` (x
+    and the seed to the device) and `serve.program` (the exported
+    module, in which the operators' spans run) inside."""
     manifest: Dict[str, Any]
     exported: Any
     device: torch.device
@@ -249,10 +254,14 @@ class LoadedPredictor:
         self._module = self.exported.module()
 
     def call(self, x, seed) -> Any:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        seed = torch.as_tensor(seed, dtype=torch.int64, device=self.device)
-        with torch.no_grad(), full_float32():
-            return self._module(x, seed)
+        with span("serve.call"):
+            with span("serve.upload"):
+                x = torch.as_tensor(x, dtype=torch.float32,
+                                    device=self.device)
+                seed = torch.as_tensor(seed, dtype=torch.int64,
+                                       device=self.device)
+            with span("serve.program"), torch.no_grad(), full_float32():
+                return self._module(x, seed)
 
     def to(self, device) -> "LoadedPredictor":
         """The program moved to `device` (an artifact exported on the CPU

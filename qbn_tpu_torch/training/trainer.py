@@ -14,10 +14,13 @@ optimiser's functional update (Adam, SGD or the adaptive clip and
 SGHMC), and the whole update dropped when the loss is not finite: params,
 optimiser state (SGHMC's and the clip's included), running statistics and
 observers keep their old values, chosen with torch.where on the device.
-Then the metric-state update. As in qbn_tpu the 'kl' and 'qconst'
-collections keep their values. Validation runs eval forwards
-(train=False); in 'qat' mode they update the observers (never the
-running statistics), as qbn_tpu's QAT validation does.
+Then the metric-state update. A step is the span `train.step`
+(profiling.span), with `train.forward` (model and loss),
+`train.backward` (torch.autograd.grad) and `train.update` (the
+optimiser's update and the metric update) inside. As in qbn_tpu the
+'kl' and 'qconst' collections keep their values. Validation runs eval
+forwards (train=False); in 'qat' mode they update the observers (never
+the running statistics), as qbn_tpu's QAT validation does.
 
 With a process group (`group`), the step is one rank's share of a
 data-parallel step (parallel/sharded.py): the forward runs under
@@ -49,6 +52,7 @@ import torch
 from qbn_tpu_torch.config import Config
 from qbn_tpu_torch.ops.collectives import all_reduce_sum, data_parallel
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
+from qbn_tpu_torch.profiling import span
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.training.checkpoint import checkpoint_path, save_variables
 from qbn_tpu_torch.training.losses import classification_loss, regression_loss
@@ -145,26 +149,33 @@ def make_train_step(model, cfg: Config, tx, mode: str, n_batches: int,
                else regression_loss)
 
     def step(state: TrainState, metric_state, x, y, noise, masks=None):
+        with span("train.step"):
+            return _step(state, metric_state, x, y, noise, masks)
+
+    def _step(state: TrainState, metric_state, x, y, noise, masks):
         with full_float32(), (data_parallel(group) if group is not None
                               else contextlib.nullcontext()):
-            out, kl, new_vars = apply_model(
-                model, {"params": state.params, **state.model_state}, x,
-                train=True, mode=mode, update_stats=True, noise=noise,
-                masks=masks)
-            loss, main, kl_t = loss_fn(
-                out, y, kl, cfg.gamma, n_batches, n_points,
-                scaling=cfg.loss_scaling,
-                loss_multiplier=cfg.loss_multiplier,
-                batch=None if group is None
-                else len(y) * torch.distributed.get_world_size(group))
-            grads = torch.autograd.grad(loss, list(tree_leaves(state.params)))
+            with span("train.forward"):
+                out, kl, new_vars = apply_model(
+                    model, {"params": state.params, **state.model_state}, x,
+                    train=True, mode=mode, update_stats=True, noise=noise,
+                    masks=masks)
+                loss, main, kl_t = loss_fn(
+                    out, y, kl, cfg.gamma, n_batches, n_points,
+                    scaling=cfg.loss_scaling,
+                    loss_multiplier=cfg.loss_multiplier,
+                    batch=None if group is None
+                    else len(y) * torch.distributed.get_world_size(group))
+            with span("train.backward"):
+                grads = torch.autograd.grad(
+                    loss, list(tree_leaves(state.params)))
         if group is not None:
             # the global batch's mean loss and gradient: each rank's is
             # the mean over its rows (plus the replicated KL term)
             n = torch.distributed.get_world_size(group)
             *grads, loss, main = (t / n for t in all_reduce_sum(
                 [*grads, loss.detach(), main.detach()], group))
-        with torch.no_grad():
+        with torch.no_grad(), span("train.update"):
             new_params, model_state, new_opt = apply_update(
                 tx, state, grads, loss, new_vars)
             metric_state = _update_metrics(task, metric_state,

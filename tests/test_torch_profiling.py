@@ -4,7 +4,9 @@ weights carried across (the same msgpack bytes); the NaN hook names the
 first module whose output is non-finite, with its inputs' statistics,
 where qbn_tpu's debug-NaN mode raises inside the jitted program; the
 `debug_nans` and `profile` fields of the config reach the runner, and a
-`--profile --debug` CPU run writes its trace."""
+`--profile --debug` CPU run writes its trace, the program's spans in it;
+the span recorder times phases (tests/test_torch_spans.py tests it
+further)."""
 
 import json
 import os
@@ -47,14 +49,26 @@ def test_model_size_bytes_equals_qbn_tpus(model, shape, quantized):
 
 
 def test_phase_timer():
-    t = profiling.PhaseTimer()
-    for _ in range(2):
-        with t.phase("train"):
+    """The span recorder in the place of the phase timer: each phase's
+    total nanoseconds, summed over its spans (collections, which the
+    recorder also keeps, left out)."""
+    profiling.start()
+    try:
+        for _ in range(2):
+            with profiling.span("train"):
+                pass
+        with profiling.span("val"):
             pass
-    with t.phase("val"):
-        pass
-    assert set(t.report()) == {"train", "val"}
-    assert all(v >= 0 for v in t.report().values())
+    finally:
+        spans = profiling.stop()
+    totals = {}
+    for s in spans:
+        if s.name.startswith("gc."):
+            continue
+        totals[s.name] = totals.get(s.name, 0) + (s.end_ns - s.start_ns)
+    assert set(totals) == {"train", "val"}
+    assert all(v >= 0 for v in totals.values())
+    assert not profiling.recording()
 
 
 def _lenet():
@@ -124,6 +138,9 @@ def test_profile_debug_run_writes_a_trace(tmp_path, nan_mode_off):
     with open(trace) as fh:
         events = json.load(fh)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    names = {str(e.get("name", "")) for e in events}
+    assert {"train.step", "train.forward", "train.backward",
+            "train.update"} <= names
     cfg = json.loads(open(os.path.join(save, "config.json")).read())
     assert cfg["profile"] is True and cfg["debug_nans"] is True
     assert os.path.exists(os.path.join(save, "DONE"))
