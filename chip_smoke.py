@@ -49,10 +49,13 @@ Phases, in order, each printing its seconds:
   5. main     `evaluate` on the checkpoint (read by the port's own reader),
               the draw kernel's launches (1 per batch) and the conv
               kernel's (20 per batch: 16 on the halo body, 4 on the
-              pixel body), the kernel path against the plain
+              pixel body; 8 of them with the residual epilogue, each
+              block's add), the kernel path against the plain
               path with the same explicit noise (each of a forward's 20
               convs against its plain version on the recorded inputs, and
-              identical int8 codes at every up_to cut), and the card
+              identical int8 codes at every up_to cut), the kernel path
+              against the blocks composed from ConvBlock then ResidualAdd
+              (each add a pass of its own) at every cut, and the card
               against the CPU path on a small input
   6. profile  one batch under torch.profiler: device time by kernel and
               the device's idle share
@@ -63,7 +66,8 @@ Phases, in order, each printing its seconds:
               qparams jittered per member): `evaluate` per path with the
               counts set to 0 before it and read after (20 conv launches
               a forward, all with shared weights: 16 halo, 3 pixel, the
-              stem on the im2col body; no draw), ms per batch and
+              stem on the im2col body; no residual epilogue, no draw), ms
+              per batch and
               example-samples/s; each distinct conv shape of a full-size
               forward against its plain version on the recorded inputs;
               one forward per method at B=8, kernel path against plain
@@ -168,7 +172,8 @@ Phases, in order, each printing its seconds:
               every answer bitwise the live mc_predict + aggregate on the
               same seed's draw or the same bank, the graphs' operators,
               the launches (no draw when frozen), frozen answers
-              independent of the seed, chunked equal to whole, a CPU
+              independent of the seed, chunked equal to whole, 63 device
+              kernels a seeded B=1 call, a CPU
               export moved to the card equal to the card's; at B=1, the
               seeded draw bitwise its plain version (torch Philox +
               inverse CDF) on the served key, each of a forward's 20
@@ -203,7 +208,11 @@ Phases, in order, each printing its seconds:
               turns (the dense kernel also against two cuBLAS products +
               epilogue; the conv kernel, per shape and per batch, also
               against the float64 cuDNN conv alone and, at every shape
-              that takes the halo or the pixel body, the im2col body; the
+              that takes the halo or the pixel body, the im2col body; at
+              the block shapes, the 8 convs a batch that run a block's add
+              again with the residual epilogue, against their plain
+              version with the same residual and a bound that reads it;
+              the
               draw kernel against its bound restated with the Philox
               integer work, and in its explicit-noise mode; the dense
               kernel also at the ResNet head and the MLP's dense_0 and
@@ -247,7 +256,7 @@ from qbn_tpu_torch.evaluation.mc import (
     presample_plan, sampled_tree)
 from qbn_tpu_torch.flows import fit
 from qbn_tpu_torch.models import layers as model_layers
-from qbn_tpu_torch.models.architectures import CUTS
+from qbn_tpu_torch.models.architectures import CUTS, BasicBlock
 from qbn_tpu_torch.models.factory import build_model, load_trained
 from qbn_tpu_torch.ops import _build
 from qbn_tpu_torch.ops import bbb_dense as bd
@@ -276,6 +285,7 @@ DENSE_REPLACES = "qbn_tpu/ops/pallas/bbb_dense.py:73"
 CONV_SOURCE = "qbn_tpu_torch/csrc/int_conv.cu"
 # K3; the same kernel carries K4's contract (qbn_tpu/ops/pallas/bconv.py:225)
 CONV_REPLACES = "qbn_tpu/ops/pallas/conv_gemm.py:123"
+RESIDUAL_REPLACES = "qbn_tpu/ops/pallas/bconv.py:225"
 # the training path: the mnist BBB preset at its batch, 2 epochs x 10 steps
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 256, 2, 10
 # (B, K, N) of LeNet's fc_0 and fc_1 at that batch, of the ResNet-18's
@@ -561,6 +571,11 @@ CONVS_PER_BATCH = sum(c[-1] for c in CONV_SHAPES)          # 20
 # the block 3x3 convs, which take the kernel's halo body
 HALO_PER_BATCH = sum(c[-1] for c in CONV_SHAPES
                      if c[3] == 3 and not c[6])                 # 16
+# of a BBB forward's convs, those that run the residual epilogue (each
+# block's conv_bn, with its add and ReLU), by shape
+RESIDUAL_CONVS = {"stage0 3x3": 2, "stage1 3x3": 2, "stage2 3x3": 2,
+                  "stage3 3x3": 2}
+RESIDUAL_PER_BATCH = sum(RESIDUAL_CONVS.values())               # 8
 
 
 def _conv_inputs(batch, samples, shape, g, dev):
@@ -791,6 +806,32 @@ def conv_route(fn, name="int_conv_merged"):
         setattr(model_layers, name, real)
 
 
+@contextlib.contextmanager
+def eager_adds():
+    """Each BasicBlock (int mode, no dropout site) composed from ConvBlock
+    then ResidualAdd for the duration, from this script: the add and its
+    ReLU as passes of their own, not in conv_bn's residual epilogue."""
+    real = BasicBlock.forward
+
+    def forward(self, x, variables, masks=None, *, mode="int", **_kw):
+        check(mode == "int" and self.dropout_p == 0,
+              "eager adds: an int-mode block with no site")
+
+        def conv(name, inp):
+            return getattr(self, name)(
+                inp, model_layers.scope(variables, name), mode=mode)
+
+        out = conv("conv_bn", conv("conv_bn_relu", x))
+        shortcut = x if self.shortcut is None else conv("shortcut", x)
+        return self.add(out, shortcut, model_layers.scope(variables, "add"))
+
+    BasicBlock.forward = forward
+    try:
+        yield
+    finally:
+        BasicBlock.forward = real
+
+
 def phase_main(seed, state, model, plan, dev):
     """`evaluate` on BATCHES batches, then the kernel path against the
     plain path and the card against the CPU; returns the draw kernel's
@@ -813,6 +854,9 @@ def phase_main(seed, state, model, plan, dev):
                                             SAMPLES, gen, dev)
     launches, conv_launches = sw.launches, ic.launches
     by_design = dict(ic.launches_by_design)
+    residual = ic.launches_residual
+    check(residual == RESIDUAL_PER_BATCH * BATCHES,
+          f"residual epilogues {residual} in {BATCHES} batches")
     check(not any(ic.launches_shared_w.values()),
           f"shared-weight conv launches on the BBB path "
           f"{ic.launches_shared_w}")
@@ -845,7 +889,8 @@ def phase_main(seed, state, model, plan, dev):
           f"S={SAMPLES}, steady {1e3 * sum(steady) / len(steady):.1f} "
           f"ms/batch, {es * len(steady) / sum(steady):.0f} "
           f"example-samples/s; conv kernel launches {conv_launches} "
-          f"({CONVS_PER_BATCH} per batch; by design {by_design})")
+          f"({CONVS_PER_BATCH} per batch; by design {by_design}; "
+          f"{residual} with the residual epilogue)")
 
     # the same batch with the same explicit noise through the kernel path
     # (draw kernel, conv kernel) and the plain path (plain draw, plain
@@ -875,20 +920,39 @@ def phase_main(seed, state, model, plan, dev):
         print(f"each of the forward's {len(calls)} convs == its plain "
               "version on the recorded inputs")
         del calls
+        # and the kernel path against the blocks composed from ConvBlock
+        # then ResidualAdd (each add a pass of its own): the residual
+        # epilogue is bitwise the eager add, here at the main path's size
         for cut in CUTS + (None,):
+            _reset_counts()
             a = mc_predict(model, state, x, samples=SAMPLES,
                            presampled=k_tree, up_to=cut)
+            n_res = ic.launches_residual
             with conv_route(lambda _real, *args, **kw:
                             ic.int_conv_merged_plain(*args, **kw)):
                 b = mc_predict(model, state, x, samples=SAMPLES,
                                presampled=p_tree, up_to=cut)
+            _reset_counts()
+            with eager_adds():
+                c = mc_predict(model, state, x, samples=SAMPLES,
+                               presampled=k_tree, up_to=cut)
+            check(ic.launches_residual == 0, f"cut {cut}: "
+                  f"{ic.launches_residual} residual epilogues with the "
+                  "eager adds")
             if cut is None:
+                check(n_res == RESIDUAL_PER_BATCH,
+                      f"{n_res} residual epilogues in a forward")
                 d = float((a - b).abs().max())
                 check(d == 0.0, f"probabilities differ by {d}")
+                d = float((a - c).abs().max())
+                check(d == 0.0, f"probabilities differ from the eager "
+                      f"adds' by {d}")
             else:
                 _same_codes(a, b, f"cut {cut}")
-            print(f"kernel path == plain path at cut {cut or 'probs'}")
-            del a, b
+                _same_codes(a, c, f"eager adds at cut {cut}")
+            print(f"kernel path == plain path == eager adds at cut "
+                  f"{cut or 'probs'} ({n_res} residual epilogues)")
+            del a, b, c
         del k_tree, p_tree
         torch.cuda.empty_cache()
 
@@ -917,7 +981,7 @@ def phase_main(seed, state, model, plan, dev):
                 _same_codes(a, b, f"card vs CPU at {cut}")
         print("card (kernels) == CPU (plain versions), small input, at "
               "every cut")
-    return launches, conv_launches, by_design
+    return launches, conv_launches, by_design, residual
 
 
 def phase_profile(model, state, seed, dev):
@@ -952,9 +1016,18 @@ SMALL_BATCH, SMALL_SAMPLES = 8, 4     # the kernel-vs-plain whole forwards
 
 
 def _reset_counts():
-    sw.launches = ic.launches = 0
+    sw.launches = ic.launches = ic.launches_residual = 0
     for d in (ic.launches_by_design, ic.launches_shared_w):
         d.update(halo=0, pixel=0, im2col=0)
+
+
+def _add_conv_counts(counts):
+    """Add the conv kernel's launches since the counts were last set to 0
+    to `counts`: in all, by body and with the residual epilogue."""
+    counts["conv"] += ic.launches
+    counts["conv_residual"] += ic.launches_residual
+    for k, v in ic.launches_by_design.items():
+        counts["conv_by_design"][k] += v
 
 
 def method_states(state, plan, seed, dev):
@@ -1052,8 +1125,10 @@ def phase_methods(seed, state, plan, dev):
         by, shared = dict(ic.launches_by_design), dict(ic.launches_shared_w)
         want = {k: v * per_batch // CONVS_PER_BATCH * BATCHES
                 for k, v in SHARED_BY_DESIGN.items()}
-        check(n == per_batch * BATCHES and draws == 0,
-              f"{label}: {n} conv launches, {draws} draws in {BATCHES} "
+        check(n == per_batch * BATCHES and draws == 0
+              and ic.launches_residual == 0,
+              f"{label}: {n} conv launches ({ic.launches_residual} with "
+              f"the residual epilogue), {draws} draws in {BATCHES} "
               "batches")
         check(by == shared == want, f"{label}: conv launches by design "
               f"{by}, with shared weights {shared}, expected {want}")
@@ -1344,11 +1419,17 @@ def phase_conv_times(seed):
     """The conv kernel at each of the net's conv shapes (B=256, S=100)
     against its plain version and against the float64 cuDNN conv alone
     (the sums of the port's conv before this kernel), in turns; its bound
-    per shape. Returns per-batch {"all" or body: (ms, plain_ms, bound_ms,
-    bound_by)}: each shape's time times its convs per batch, summed."""
+    per shape. At the block shapes whose conv_bn runs a block's add
+    (RESIDUAL_CONVS), those convs are timed again with the residual
+    epilogue, against the plain version with the same residual; their
+    bound also reads the residual, a byte per output code. Returns
+    per-batch {"all", "residual" or body: (ms, plain_ms, bound_ms,
+    bound_by)}: each shape's time times its convs per batch (with or
+    without the residual, as a BBB forward runs them), summed."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 51)
     tot = dict(ms=0.0, im2col=0.0, plain=0.0, f64=0.0, bytes=0, ops=0)
+    res_tot = dict(ms=0.0, plain=0.0, bytes=0, ops=0)
     by = {}
     for shape in CONV_SHAPES:
         name, cin, cout, k, stride, hw, shared, n = shape
@@ -1387,9 +1468,10 @@ def phase_conv_times(seed):
         im2col_ms = (t[3] + t[4]) / 2 if both else ms
         ho = (hw + 2 * (k // 2) - k) // stride + 1
         read = _rows_read(hw, k, stride, ho)
+        codes = BATCH * ho * ho * SAMPLES * cout
         nbytes = (x.numel() // (hw * hw) * read * read + w.numel()
-                  + BATCH * ho * ho * SAMPLES * cout + 4 * cout)
-        ops = 2 * BATCH * ho * ho * SAMPLES * k * k * cin * cout
+                  + codes + 4 * cout)
+        ops = 2 * codes * k * k * cin
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops / INT8_OPS_PER_S
         other = (f", im2col body {t[3]:.4f}/{t[4]:.4f} ms "
@@ -1402,17 +1484,65 @@ def phase_conv_times(seed):
               f"({nbytes} bytes {bytes_ms:.4f} ms, {ops} operations "
               f"{ops_ms:.4f} ms), kernel at {max(bytes_ms, ops_ms) / ms:.1%}"
               " of its bound", flush=True)
-        tot["ms"] += n * ms
-        tot["im2col"] += n * im2col_ms
-        tot["plain"] += n * plain_ms
-        tot["f64"] += n * f64_ms
-        tot["bytes"] += n * nbytes
-        tot["ops"] += n * ops
+        # (convs a batch, ms, im2col body ms, plain ms, bytes)
+        kinds = [(n, ms, im2col_ms, plain_ms, nbytes)]
+        r = RESIDUAL_CONVS.get(name, 0)
+        if r:
+            # as the block's conv_bn runs it: no ReLU of its own, then the
+            # add of the shortcut's codes and the ReLU on the add's grid
+            ra = a[:12] + (False, shared)
+            rq = dict(residual=torch.randint(
+                          -60, 60, (BATCH, ho, ho, SAMPLES * cout),
+                          generator=g, device=dev, dtype=torch.int8),
+                      res_scale=_f32(0.105613649, dev),
+                      res_out_scale=_f32(0.124463566, dev),
+                      res_out_zp=_i32(63, dev), res_relu=True)
+
+            def r_kernel():
+                ic.int_conv_merged(*ra, **rq)
+
+            def r_im2col():
+                ic.int_conv_merged(*ra, **rq, _design="im2col")
+
+            def r_plain():
+                ic.int_conv_merged_plain(*ra, **rq)
+
+            runs = [(r_plain, 3), (r_kernel, 20)] + (
+                [(r_im2col, 20), (r_im2col, 20)] if both else []) + [
+                (r_kernel, 20), (r_plain, 3)]
+            t = [cuda_ms(f, iters=i, warmup=1) for f, i in runs]
+            r_ms, r_plain_ms = (t[1] + t[-2]) / 2, (t[0] + t[-1]) / 2
+            r_im2col_ms = (t[2] + t[3]) / 2 if both else r_ms
+            r_bytes = nbytes + codes
+            r_bound = 1e3 * r_bytes / HBM_BYTES_PER_S
+            print(f"int_conv {name} with the residual epilogue x{r}/batch: "
+                  f"kernel ({plan.design}) {t[1]:.4f}/{t[-2]:.4f} ms "
+                  f"({r_ms - ms:+.4f} ms against the conv alone)"
+                  + (f", im2col body {t[2]:.4f}/{t[3]:.4f} ms" if both
+                     else "")
+                  + f", plain {t[0]:.3f}/{t[-1]:.3f} ms, bound "
+                  f"{max(r_bound, ops_ms):.4f} ms ({r_bytes} bytes with "
+                  f"the residual's {codes}), kernel at "
+                  f"{max(r_bound, ops_ms) / r_ms:.1%} of its bound",
+                  flush=True)
+            kinds = [(n - r, ms, im2col_ms, plain_ms, nbytes),
+                     (r, r_ms, r_im2col_ms, r_plain_ms, r_bytes)]
+            for key, v in (("ms", r_ms), ("plain", r_plain_ms),
+                           ("bytes", r_bytes), ("ops", ops)):
+                res_tot[key] += r * v
+            del rq
         b = by.setdefault(plan.design, dict(ms=0.0, plain=0.0, bytes=0,
                                             ops=0))
-        for key, v in (("ms", ms), ("plain", plain_ms), ("bytes", nbytes),
-                       ("ops", ops)):
-            b[key] += n * v
+        tot["f64"] += n * f64_ms
+        for m, k_ms, k_im2col, k_plain, k_bytes in kinds:
+            tot["ms"] += m * k_ms
+            tot["im2col"] += m * k_im2col
+            tot["plain"] += m * k_plain
+            tot["bytes"] += m * k_bytes
+            tot["ops"] += m * ops
+            for key, v in (("ms", k_ms), ("plain", k_plain),
+                           ("bytes", k_bytes), ("ops", ops)):
+                b[key] += m * v
         del x, w, w_oihw, a
         torch.cuda.empty_cache()
     def bound(t):
@@ -1427,12 +1557,18 @@ def phase_conv_times(seed):
         print(f"int_conv {design} body per batch: kernel {t['ms']:.3f} ms, "
               f"plain {t['plain']:.1f} ms, bound {out[design][2]:.4f} ms by "
               f"{out[design][3]}")
+    out["residual"] = (res_tot["ms"], res_tot["plain"]) + bound(res_tot)[2:]
+    print(f"int_conv with the residual epilogue per batch "
+          f"({RESIDUAL_PER_BATCH} convs): kernel {res_tot['ms']:.3f} ms, "
+          f"plain {res_tot['plain']:.1f} ms, bound {out['residual'][2]:.4f}"
+          f" ms by {out['residual'][3]}")
     # the im2col body on every shape, in turns with the plan's body
     out["im2col"] = (tot["im2col"], tot["plain"]) + bound(tot)[2:]
     bytes_ms, ops_ms, bound_ms, bound_by = bound(tot)
     out["all"] = (tot["ms"], tot["plain"], bound_ms, bound_by)
-    print(f"int_conv per batch ({CONVS_PER_BATCH} convs): kernel "
-          f"{tot['ms']:.3f} ms (with the im2col body on every shape "
+    print(f"int_conv per batch ({CONVS_PER_BATCH} convs, "
+          f"{RESIDUAL_PER_BATCH} of them with the residual epilogue): "
+          f"kernel {tot['ms']:.3f} ms (with the im2col body on every shape "
           f"{tot['im2col']:.3f} ms), plain {tot['plain']:.1f} ms, float64 "
           f"cuDNN convs alone {tot['f64']:.1f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({tot['bytes']} bytes {bytes_ms:.4f} ms, {tot['ops']}"
@@ -2217,7 +2353,7 @@ def phase_qat(seed, dev):
     from qbn_tpu_torch.flows import qat as flows_qat
     from qbn_tpu_torch.utils import convert_model
     cpu = torch.device("cpu")
-    counts = {"dense": 0, "draw": 0, "conv": 0,
+    counts = {"dense": 0, "draw": 0, "conv": 0, "conv_residual": 0,
               "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0},
               "conv_shared": 0}
     ms = {}
@@ -2323,11 +2459,12 @@ def _int_batches(method, exp_dir, seed, dev, counts):
     for p in probs:
         check(p.shape == (BATCH, 10) and bool(torch.isfinite(p).all()),
               f"{method} INT after convert: probabilities")
+    want_res = 2 * RESIDUAL_PER_BATCH if method == "bbb" else 0
+    check(ic.launches_residual == want_res, f"{method} INT after convert: "
+          f"{ic.launches_residual} residual epilogues, {want_res} expected")
     counts["draw"] += draws
     if method == "bbb":
-        counts["conv"] += convs
-        for k in by:
-            counts["conv_by_design"][k] += by[k]
+        _add_conv_counts(counts)
     else:
         counts["conv_shared"] += sum(shared.values())
     metrics = {k: round(float(v), 6) for k, v in cls_metrics_compute(
@@ -2690,7 +2827,7 @@ def phase_sghmc(seed, dev):
     (counts, {what: ms})."""
     import tempfile
     from qbn_tpu_torch.flows import qat as flows_qat
-    counts = {"dense": 0, "draw": 0, "conv": 0,
+    counts = {"dense": 0, "draw": 0, "conv": 0, "conv_residual": 0,
               "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0},
               "conv_shared": 0}
     ms = {}
@@ -3277,7 +3414,7 @@ def phase_harness(data, dev, f4=False):
         evaluate_classification_uncertainty, evaluate_regression_uncertainty)
     from qbn_tpu_torch.models.factory import load_state
     _device_data_checks(data, dev)
-    counts = {"draw": 0, "conv": 0,
+    counts = {"draw": 0, "conv": 0, "conv_residual": 0,
               "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0}}
     secs, worst, misses = {}, {}, []
     with tempfile.TemporaryDirectory() as tmp:
@@ -3310,9 +3447,7 @@ def phase_harness(data, dev, f4=False):
                 check(ic.launches == conv, f"{name}: {ic.launches} conv "
                       f"launches, {conv} expected")
                 counts["draw"] += sw.launches
-                counts["conv"] += ic.launches
-                for k, v in ic.launches_by_design.items():
-                    counts["conv_by_design"][k] += v
+                _add_conv_counts(counts)
             replicas = [got]
             for rep in range(1, MC_REPLICAS.get(name, 1)):
                 replicas.append(_replica(name, rep, cfg, mode, tmp, dev))
@@ -3468,7 +3603,7 @@ def phase_run(data, dev):
     (launch counts, {run: seconds})."""
     import tempfile
     from qbn_tpu_torch import run as runner
-    counts = {"draw": 0, "conv": 0, "dense": 0,
+    counts = {"draw": 0, "conv": 0, "dense": 0, "conv_residual": 0,
               "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0}}
     secs = {}
     regs = ("synthetic", "housing", "concrete", "energy", "power", "wine",
@@ -3531,10 +3666,8 @@ def phase_run(data, dev):
                       f"{what}: draw {sw.launches}, conv {ic.launches} "
                       "launches")
             counts["draw"] += sw.launches
-            counts["conv"] += ic.launches
+            _add_conv_counts(counts)
             counts["dense"] += bd.launches
-            for k, v in ic.launches_by_design.items():
-                counts["conv_by_design"][k] += v
             print(f"run {what}: {secs[what]:.2f} s, launches draw "
                   f"{sw.launches} conv {ic.launches} dense {bd.launches}; "
                   f"{len(names)} files"
@@ -3557,6 +3690,10 @@ def _s_of(trainer, converted, method):
 SERVE_SAMPLES, SERVE_CHUNK = 100, 20
 SERVE_REQUESTS = {256: 4, 1: 8}
 SERVE_FREEZE = 5              # the frozen bank's seed (plus --seed)
+# device kernels a seeded call of the whole (unchunked) served program
+# launches, copies and sets not counted: the draw, the 20 convs (8 with
+# the residual epilogue) and 42 eager passes
+SERVE_KERNELS = 63
 SERVE_OPS = {"draw": "qbn_tpu_torch.draw_int8.default",
              "conv": "qbn_tpu_torch.int_conv_merged.default"}
 
@@ -3577,6 +3714,25 @@ def _served(loaded, requests):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     return answers, ms
+
+
+def _served_kernels(loaded, requests, warmup=2):
+    """Device kernels a call of the loaded artifact launches (copies and
+    sets not counted), from a CUDA-only profile of the requests, one
+    profiler step a call. The first `warmup` steps are the profiler's
+    warm-up, whose events it drops: a profile started after others in the
+    same process can miss the kernels of its first moments."""
+    steps = torch.profiler.schedule(wait=0, warmup=warmup,
+                                    active=len(requests) - warmup, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=steps) as prof:
+        for x, sd in requests:
+            loaded.call(x, sd)
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) / (len(requests) - warmup)
 
 
 def phase_serving(seed, dev):
@@ -3600,7 +3756,7 @@ def phase_serving(seed, dev):
                                                 dtype=np.float32),
                                      device=dev), seed + 1000 + i)
                     for i in range(n)] for b, n in SERVE_REQUESTS.items()}
-    counts = {"draw": 0, "conv": 0,
+    counts = {"draw": 0, "conv": 0, "conv_residual": 0,
               "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0}}
     timing = {}
 
@@ -3638,13 +3794,13 @@ def phase_serving(seed, dev):
                     got, ms = _served(loaded, reqs)
                     forwards = len(reqs) * (s // chunk if chunk else 1)
                     check(sw.launches == (0 if frozen else len(reqs))
-                          and ic.launches == CONVS_PER_BATCH * forwards,
+                          and ic.launches == CONVS_PER_BATCH * forwards
+                          and ic.launches_residual
+                          == RESIDUAL_PER_BATCH * forwards,
                           f"serving {name}: draw {sw.launches}, conv "
                           f"{ic.launches} launches for {len(reqs)} calls")
                     counts["draw"] += sw.launches
-                    counts["conv"] += ic.launches
-                    for k, v in ic.launches_by_design.items():
-                        counts["conv_by_design"][k] += v
+                    _add_conv_counts(counts)
                     for (x, sd), a in zip(reqs, got):
                         with torch.no_grad():
                             sampled = bank if frozen else \
@@ -3672,6 +3828,16 @@ def phase_serving(seed, dev):
                           f"call (first {ms[0]:.1f}); launches draw "
                           f"{sw.launches} conv {ic.launches}; == live, "
                           "bitwise", flush=True)
+                    if not frozen and chunk is None and b == 1:
+                        # the served call's kernels (these calls are not
+                        # counted in the launches)
+                        per_call = _served_kernels(loaded, reqs)
+                        check(per_call == SERVE_KERNELS,
+                              f"serving {name}: {per_call} device kernels "
+                              f"a call, {SERVE_KERNELS} expected")
+                        print(f"serving {name}: {per_call:.0f} device "
+                              "kernels a call (copies and sets not "
+                              "counted)", flush=True)
                     del loaded
                     torch.cuda.empty_cache()
         for frozen in ("frozen", "seeded"):
@@ -3692,12 +3858,12 @@ def phase_serving(seed, dev):
         _reset_counts()
         got, _ms = _served(moved, requests[1])
         check(sw.launches == len(got)
-              and ic.launches == CONVS_PER_BATCH * len(got),
-              f"moved CPU export: draw {sw.launches}, conv {ic.launches}")
+              and ic.launches == CONVS_PER_BATCH * len(got)
+              and ic.launches_residual == RESIDUAL_PER_BATCH * len(got),
+              f"moved CPU export: draw {sw.launches}, conv {ic.launches} "
+              f"({ic.launches_residual} residual)")
         counts["draw"] += sw.launches
-        counts["conv"] += ic.launches
-        for k, v in ic.launches_by_design.items():
-            counts["conv_by_design"][k] += v
+        _add_conv_counts(counts)
         check(all(torch.equal(u, v) for u, v in zip(got,
                                                       answers["seeded B=1"])),
               "the CPU export moved to the card != the card's export")
@@ -4106,6 +4272,7 @@ def _parallel_rank(mesh, job):
     torch.cuda.synchronize()
     step_ms = _timed_steps(step, s1, rxb, ryb, noise, PAR_TIMED, dev)
     counts = dict(draw=sw.launches, conv=ic.launches,
+                  residual=ic.launches_residual,
                   by_design=dict(ic.launches_by_design),
                   shared=sum(ic.launches_shared_w.values()),
                   dense=bd.launches)
@@ -4250,6 +4417,7 @@ def phase_parallel(seed, state, model, plan, dev):
         del s1, rstate, step
         torch.cuda.empty_cache()
         counts = {"draw": 0, "conv": 0, "dense": 0, "shared": 0,
+                  "conv_residual": 0,
                   "conv_by_design": {"halo": 0, "pixel": 0, "im2col": 0}}
         for world in (PAR_WORLD, 1):
             backend = pick_backend(world, dev.type)
@@ -4295,6 +4463,7 @@ def phase_parallel(seed, state, model, plan, dev):
                 forwards = 2 + PAR_TIMED          # given + seeded batches
                 check(c["draw"] == 1 + PAR_TIMED
                       and c["conv"] == CONVS_PER_BATCH * forwards
+                      and c["residual"] == RESIDUAL_PER_BATCH * forwards
                       and c["dense"] == 2 + PAR_TIMED and not c["shared"],
                       f"{what}: rank {r['rank']} launches {c}")
                 print(f"{what} rank {r['rank']} on {r['device']}: launches "
@@ -4305,6 +4474,7 @@ def phase_parallel(seed, state, model, plan, dev):
                       "pinned (then held to its decisions)", flush=True)
                 counts["draw"] += c["draw"]
                 counts["conv"] += c["conv"]
+                counts["conv_residual"] += c["residual"]
                 counts["dense"] += c["dense"]
                 for k, v in c["by_design"].items():
                     counts["conv_by_design"][k] += v
@@ -4401,7 +4571,7 @@ def main(argv=None) -> int:
         conv_errs = phase_int_conv(BATCH, SAMPLES, args.seed, dev)
         torch.cuda.empty_cache()
     with Phase("main"):
-        launches, conv_launches, by_design = phase_main(
+        launches, conv_launches, by_design, residual = phase_main(
             args.seed, state, model, plan, dev)
         torch.cuda.empty_cache()
     with Phase("profile"):
@@ -4564,7 +4734,22 @@ def main(argv=None) -> int:
                      + s_counts["conv_shared"]),
         "max_abs_err": max(m_err, shared_err), "ms": shared_times[0],
         "plain_ms": shared_times[1], "bound_ms": shared_times[2],
-        "bound_by": shared_times[3], "library_ms": None}]}))
+        "bound_by": shared_times[3], "library_ms": None}]
+        + [{
+        # the conv kernel's residual epilogue (bconv's fused add) on the
+        # BBB paths: each block's conv_bn runs its add and ReLU; those 8
+        # convs a batch timed with it, checked on every body in phase
+        # int_conv
+        "name": "int_conv/residual", "route": "cuda",
+        "source": CONV_SOURCE, "replaces": RESIDUAL_REPLACES,
+        "launches": residual + sum(c["conv_residual"] for c in (
+            q_counts, h_counts, u_counts, v_counts, p_counts)),
+        "max_abs_err": max(conv_errs.values()),
+        "ms": conv_times["residual"][0],
+        "plain_ms": conv_times["residual"][1],
+        "bound_ms": conv_times["residual"][2],
+        "bound_by": conv_times["residual"][3],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

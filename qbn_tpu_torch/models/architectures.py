@@ -34,8 +34,9 @@ from torch import nn
 
 from qbn_tpu_torch.config import QuantConfig
 from qbn_tpu_torch.models.layers import (
-    MODES, BernoulliDropout, ConvBlock, DenseBlock, InputQuant, ResidualAdd,
-    avg_pool, child, dequant, flatten, max_pool, scope,
+    MODES, BernoulliDropout, ConvBlock, DenseBlock, InputQuant,
+    MergedQTensor, ResidualAdd, avg_pool, child, dequant, flatten, max_pool,
+    scope,
 )
 
 CUTS = ("stem", "stage0", "stage1", "stage2", "stage3", "pool")
@@ -219,7 +220,9 @@ class LeNet(_Sites):
 
 class BasicBlock(_Sites):
     """ResNet basic block: two 3x3 conv+BN, optional 1x1 conv+BN shortcut,
-    the MC-Dropout sites after each conv, and the residual add + ReLU."""
+    the MC-Dropout sites after each conv, and the residual add + ReLU.
+    In int mode on merged-layout input (Bayes-by-backprop) with no sites,
+    the add and its ReLU run inside conv_bn's kernel launch."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  stochastic: bool = False, dropout_p: float = 0.0,
@@ -258,11 +261,21 @@ class BasicBlock(_Sites):
         dkw = dict(mode=mode, train=train, update_stats=update_stats,
                    initializing=initializing, mutable=mutable)
 
-        def conv(name, inp):
+        def conv(name, inp, **extra):
             return getattr(self, name)(inp, scope(variables, name),
                                        kl=_child(kl, name),
-                                       mutable=child(mutable, name), **kw)
+                                       mutable=child(mutable, name), **kw,
+                                       **extra)
 
+        if (mode == "int" and self.dropout_p <= 0
+                and isinstance(x, MergedQTensor)):
+            # per-sample weights in the merged layout and no site between
+            # conv_bn and the add: the add and its ReLU run in conv_bn's
+            # epilogue (bitwise the add's own pass)
+            shortcut = x if self.shortcut is None else conv("shortcut", x)
+            out = conv("conv_bn_relu", x)
+            return conv("conv_bn", out, residual=self.add.epilogue(
+                shortcut, scope(variables, "add")))
         out = conv("conv_bn_relu", x)
         out = self._drop("drop_0", out, variables, masks, **dkw)
         out = conv("conv_bn", out)

@@ -440,9 +440,15 @@ class ConvBlock(nn.Module):
     def forward(self, x, variables, *, train: bool = False,
                 mode: str = "float", noise=None, kl: Optional[dict] = None,
                 update_stats: bool = False, mutable: Optional[dict] = None,
-                initializing: bool = False):
+                initializing: bool = False, residual: Optional[dict] = None):
+        """residual (int mode only): a residual add's arguments to
+        `int_conv_merged` (`ResidualAdd.epilogue`), run in this conv's
+        epilogue; the output is then on the add's grid."""
         if mode == "int":
-            return self._int_forward(x, variables)
+            return self._int_forward(x, variables, residual)
+        if residual is not None:
+            raise ValueError("a residual runs in the conv's epilogue in int "
+                             "mode only")
         if mode not in MODES:
             raise ValueError(f"unknown mode '{mode}'")
         p = variables["params"]
@@ -562,30 +568,31 @@ class ConvBlock(nn.Module):
                                            device=kernel.device))
         _write(mutable, "qconst", "q", entry)
 
-    def _int_forward(self, x, variables):
+    def _int_forward(self, x, variables, residual=None):
         qc = variables["qconst"]["q"]
         a_lo, a_hi = self.quant.a_bounds
         pad = [(self.padding, self.padding)] * 2
+        res = residual or {}
+        scale, zp = ((res["res_out_scale"], res["res_out_zp"]) if res
+                     else (qc["act_scale"], qc["act_zp"]))
         if self.stochastic:
             presampled = _sampled(variables)    # (S, kh, kw, cin, cout)
             out = int_conv_merged(
                 x.codes, x.scale, presampled, qc["add_scale"], qc["add_zp"],
                 qc["bias_f"], qc["act_scale"], qc["act_zp"], self.strides,
                 pad, a_lo, a_hi, relu=self.relu,
-                shared_x=isinstance(x, QTensor))
-            return MergedQTensor(out, qc["act_scale"], qc["act_zp"],
-                                 s=presampled.shape[0])
+                shared_x=isinstance(x, QTensor), **res)
+            return MergedQTensor(out, scale, zp, s=presampled.shape[0])
         args = (x.scale, qc["w_codes"], qc["w_scale"], qc["w_zp"],
                 qc["bias_f"], qc["act_scale"], qc["act_zp"], self.strides,
                 pad, a_lo, a_hi)
         if isinstance(x, MergedQTensor):
             # merged activations through a deterministic conv: one set of
             # weights for every sample group
-            out = int_conv_merged(x.codes, *args, relu=self.relu)
+            out = int_conv_merged(x.codes, *args, relu=self.relu, **res)
         else:
             out = int_conv(x.codes, *args, relu=self.relu)
-        return dataclasses.replace(x, codes=out, scale=qc["act_scale"],
-                                   zp=qc["act_zp"])
+        return dataclasses.replace(x, codes=out, scale=scale, zp=zp)
 
 
 class BernoulliDropout(nn.Module):
@@ -681,6 +688,17 @@ class ResidualAdd(nn.Module):
                 _write_scalar_qconst(mutable, obs, "add_act", ("scale", "zp"),
                                      self.quant.a_bounds, initializing)
         return torch.relu(y) if self.relu else y
+
+    def epilogue(self, b, variables):
+        """The int-mode add of `b` (and the ReLU) as the residual
+        arguments of `int_conv_merged`, which runs them in the epilogue of
+        the conv that makes `a`: the arithmetic of `_int_forward`, held
+        bitwise equal to it, with no pass of its own over the
+        activations."""
+        qc = variables["qconst"]["q"]
+        return dict(residual=b.codes, res_scale=b.scale,
+                    res_out_scale=qc["scale"], res_out_zp=qc["zp"],
+                    res_relu=self.relu)
 
     def _int_forward(self, a, b, variables):
         qc = variables["qconst"]["q"]

@@ -70,6 +70,9 @@ launches_by_design = {"halo": 0, "pixel": 0, "im2col": 0}
 # of those, the launches with one set of weights shared by every sample
 # (MC-Dropout, pointwise and ensemble members), by design
 launches_shared_w = {"halo": 0, "pixel": 0, "im2col": 0}
+# of those, the launches that ran the residual epilogue (a residual add in
+# the conv's launch)
+launches_residual = 0
 
 
 # -- the plain versions ---------------------------------------------------
@@ -671,7 +674,7 @@ def conv_args(x, x_strides, x_shape, w, samples, stride, pad, out_shape,
 def _launch(x, *shape_args, **kwargs):
     """One launch of the kernel (`conv_args`'s arguments) on the current
     stream; raises if the launch fails."""
-    global launches
+    global launches, launches_residual
     args, plan = conv_args(x, *shape_args, sms=_sm_count(x.device),
                            **kwargs)
     fn = _lib()
@@ -684,6 +687,8 @@ def _launch(x, *shape_args, **kwargs):
     launches_by_design[plan.design] += 1
     if args.w_ss == 0:
         launches_shared_w[plan.design] += 1
+    if args.res:
+        launches_residual += 1
 
 
 def _merged_geometry(x_codes, w_codes, strides, padding, shared_x):

@@ -28,6 +28,7 @@ from qbn_tpu.utils import split_rngs
 from qbn_tpu_torch.config import Config
 from qbn_tpu_torch.convert import from_jax_state, to_numpy_state
 from qbn_tpu_torch.evaluation.mc import mc_predict, presample_plan
+from qbn_tpu_torch.models.architectures import BasicBlock
 from qbn_tpu_torch.models.factory import build_model
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
 from qbn_tpu_torch.presets import preset
@@ -39,6 +40,7 @@ from qbn_tpu_torch.utils import convert_model as t_convert
 from test_torch_convert import (
     B, _lenet, _resnet, _x, assert_qconst_match, j_qconst, qat_state)
 from test_torch_int_methods import assert_layers_equal, j_run, t_run
+from test_torch_residual_route import eager_block_forward
 
 S = 3
 QPARAM_KEYS = ("w_scale", "w_zp", "std_scale", "std_zp", "mul_scale",
@@ -157,8 +159,20 @@ def test_qat_step_convert_int_chain(method, monkeypatch):
     tstate["params"] = tconv["params"]
     xe = _x((B, 32, 32, 3), seed=7)
     if method == "bbb":
-        jout, tout, jl, tl = merged_run(jm, tm, jconv, tstate, xe, S)
+        # the port runs each block's add in conv_bn's epilogue: module by
+        # module, the blocks composed from ConvBlock then ResidualAdd (the
+        # arithmetic that route is held bitwise to) against qbn_tpu's
+        # modules; then the route itself, its conv_bn outputs against
+        # qbn_tpu's adds and its probabilities bitwise the composition's
+        with monkeypatch.context() as mp:
+            mp.setattr(BasicBlock, "forward", eager_block_forward)
+            jout, eager, jl, tl = merged_run(jm, tm, jconv, tstate, xe, S)
         assert_merged_layers_equal(jl, tl, 30)
+        _jo, tout, _jl, route = merged_run(jm, tm, jconv, tstate, xe, S)
+        adds = {n: jl[n] for n in jl if n.endswith(".add")}
+        assert_merged_layers_equal(adds, {
+            n: route[n[:-len("add")] + "conv_bn"] for n in adds}, 8)
+        assert torch.equal(tout, eager)
     else:
         samples = S if method == "mcdropout" else 1
         jout, jl, masks = j_run(jm, jconv, xe, samples, monkeypatch)

@@ -41,8 +41,8 @@ from qbn_tpu_torch.convert import from_jax_state, to_numpy_state
 from qbn_tpu_torch.evaluation import ensemble as TE
 from qbn_tpu_torch.evaluation.mc import (
     aggregate, draw_sampled_weights, mc_predict, presample_plan)
-from qbn_tpu_torch.models.architectures import CUTS, ResNet
-from qbn_tpu_torch.models.factory import build_model
+from qbn_tpu_torch.models.architectures import CUTS, BasicBlock, ResNet
+from qbn_tpu_torch.models.factory import build_model, load_trained
 from qbn_tpu_torch.ops.stochastic import SeedMasks
 from qbn_tpu_torch.serving import (export_predictor, load_predictor,
                                    make_predictor)
@@ -52,6 +52,7 @@ from qbn_tpu_torch.serving.export import (DRAW_STREAM, MASK_STREAM,
 from qbn_tpu_torch.utils import convert_model, init_variables
 
 from test_torch_int_methods import convert
+from test_torch_residual_route import eager_block_forward
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "examples", "campaign",
@@ -263,6 +264,32 @@ def test_graph_calls_the_kernel_operators(tmp_path, resnet, freeze):
         val = n.meta.get("val")
         if isinstance(val, torch.Tensor):
             assert val.dtype != torch.float64, n
+
+
+def test_flagship_graph_adds_in_the_conv_epilogue(tmp_path, monkeypatch):
+    """The exported flagship (cut to S=2, B=2, seeded draws) makes its 8
+    residual adds in the epilogue of 8 of its 20 merged conv nodes, and
+    answers for fixed seeds bitwise as the live predictor with the adds as
+    passes of their own (ConvBlock then ResidualAdd), which is what an
+    export of that graph answers."""
+    cfg, model, state = load_trained(FLAGSHIP, device="cpu")
+    export_predictor(model, state, cfg, mode="int", batch=2,
+                     input_shape=(32, 32, 3), path=str(tmp_path), samples=2,
+                     use_plan=True)
+    loaded = load_predictor(str(tmp_path))
+    op = torch.ops.qbn_tpu_torch.int_conv_merged.default
+    names = [a.name for a in op._schema.arguments]
+    residual = [{**dict(zip(names, n.args)), **n.kwargs}.get("residual")
+                is not None for n in loaded.exported.graph.nodes
+                if n.op == "call_function" and n.target == op]
+    assert len(residual) == 20 and sum(residual) == 8
+    monkeypatch.setattr(BasicBlock, "forward", eager_block_forward)
+    eager = make_predictor(model, state, cfg, mode="int", samples=2,
+                           use_plan=True)
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for seed in (0, 2 ** 31 + 5):
+            _same(loaded.call(x, seed), eager(x, torch.tensor(seed)))
 
 
 def test_frozen_bank_against_qbn_tpu_lenet(lenet):
