@@ -222,6 +222,22 @@ Phases, in order, each printing its seconds:
               shape of an MC-Dropout forward, bitwise against its plain
               version on random codes, and against its bound with the
               weights counted once)
+  24. resnet50 the Bayes-by-backprop ResNet-50 v1.5 (conv_resnet50_bbb) at
+              its published widths, B=256, S=20 (the benchmark's cell):
+              each of its 23 distinct conv shapes (the 7x7/2 stem on
+              shared input, 1x1 convs of 64 to 2048 channels, the strided
+              1x1 shortcuts, 3x3 convs up to K=4608) through the conv
+              kernel on the body its plan takes, bitwise against its plain
+              version as a forward runs it (ReLU on, off on a shortcut, a
+              block's conv_2 with the residual epilogue), raw sums against
+              float64 and int64 window sums, each timed against its plain
+              version and its bound; `evaluate` on an INT state made from
+              --seed (init, a QAT pass, convert) with the counts set to 0
+              before it: a draw, 53 conv launches on the im2col body and
+              16 residual epilogues a batch; one forward with the span
+              recorder on (one op.max_pool span); the kernel path against
+              the plain path at B=8, S=4 with the same explicit noise,
+              identical codes at every cut
 
 Any failed check raises and the run exits non-zero. The last lines are a
 `{"kernels": [...]}` JSON object and `{"ok": true, "device": {...}}`.
@@ -1574,6 +1590,303 @@ def phase_conv_times(seed):
           f"{bound_by} ({tot['bytes']} bytes {bytes_ms:.4f} ms, {tot['ops']}"
           f" operations {ops_ms:.4f} ms)")
     return out
+
+
+# the ImageNet ResNet-50 v1.5 (conv_resnet50_bbb) at its published widths,
+# at the batch and samples of the benchmark's cell: its distinct conv shapes
+R50_MODEL = "conv_resnet50_bbb"
+R50_INPUT = (224, 224, 3)
+R50_BATCH, R50_SAMPLES, R50_BATCHES = 256, 20, 2
+R50_SHAPES = [
+    # (name, cin, cout, kernel, stride, input size, shared x, per batch,
+    #  of them with the residual epilogue (a block's conv_2 and its add),
+    #  ReLU on the others (off on the shortcuts))
+    ("stem 7x7/2", 3, 64, 7, 2, 224, True, 1, 0, True),
+    ("stage0 1x1 64-64", 64, 64, 1, 1, 56, False, 1, 0, True),
+    ("stage0 3x3", 64, 64, 3, 1, 56, False, 3, 0, True),
+    ("stage0 1x1 64-256", 64, 256, 1, 1, 56, False, 4, 3, False),
+    ("stage0 1x1 256-64", 256, 64, 1, 1, 56, False, 2, 0, True),
+    ("stage1 1x1 256-128", 256, 128, 1, 1, 56, False, 1, 0, True),
+    ("stage1 3x3/2", 128, 128, 3, 2, 56, False, 1, 0, True),
+    ("stage1 3x3", 128, 128, 3, 1, 28, False, 3, 0, True),
+    ("stage1 1x1 128-512", 128, 512, 1, 1, 28, False, 4, 4, True),
+    ("stage1 1x1/2 256-512", 256, 512, 1, 2, 56, False, 1, 0, False),
+    ("stage1 1x1 512-128", 512, 128, 1, 1, 28, False, 3, 0, True),
+    ("stage2 1x1 512-256", 512, 256, 1, 1, 28, False, 1, 0, True),
+    ("stage2 3x3/2", 256, 256, 3, 2, 28, False, 1, 0, True),
+    ("stage2 3x3", 256, 256, 3, 1, 14, False, 5, 0, True),
+    ("stage2 1x1 256-1024", 256, 1024, 1, 1, 14, False, 6, 6, True),
+    ("stage2 1x1/2 512-1024", 512, 1024, 1, 2, 28, False, 1, 0, False),
+    ("stage2 1x1 1024-256", 1024, 256, 1, 1, 14, False, 5, 0, True),
+    ("stage3 1x1 1024-512", 1024, 512, 1, 1, 14, False, 1, 0, True),
+    ("stage3 3x3/2", 512, 512, 3, 2, 14, False, 1, 0, True),
+    ("stage3 3x3", 512, 512, 3, 1, 7, False, 2, 0, True),
+    ("stage3 1x1 512-2048", 512, 2048, 1, 1, 7, False, 3, 3, True),
+    ("stage3 1x1/2 1024-2048", 1024, 2048, 1, 2, 14, False, 1, 0, False),
+    ("stage3 1x1 2048-512", 2048, 512, 1, 1, 7, False, 2, 0, True),
+]
+R50_CONVS = sum(c[7] for c in R50_SHAPES)                   # 53
+R50_RESIDUAL = sum(c[8] for c in R50_SHAPES)                # 16
+# the float64 outputs of the plain version's convs, per chunk of images
+R50_PLAIN_BYTES = 1 << 30
+
+
+def _plain_chunked(args, kwargs, batch):
+    """int_conv_merged_plain on chunks of the batch (its float64 sums of
+    the whole B=256 batch would not fit beside the operands), joined."""
+    x, w = args[0], args[2]
+    ho = (x.shape[1] + 2 * (w.shape[1] // 2) - w.shape[1]) \
+        // args[8][0] + 1
+    per_image = 8 * max(ho * ho * w.shape[0] * w.shape[4],
+                        x[0].numel())
+    n = max(1, R50_PLAIN_BYTES // per_image)
+    out = []
+    for i in range(0, batch, n):
+        kw = dict(kwargs)
+        if kw.get("residual") is not None:
+            kw["residual"] = kw["residual"][i:i + n]
+        out.append(ic.int_conv_merged_plain(args[0][i:i + n], *args[1:],
+                                            **kw))
+    return torch.cat(out)
+
+
+def _kaiming(params):
+    """The ResNet-50's params with each kernel widened from BBB's U(-0.01,
+    0.01) init to Kaiming-uniform's U(-b, b), b = sqrt(6 / fan_in), so
+    that the signal reaches the head."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = _kaiming(v)
+        elif k == "kernel":
+            out[k] = v * (math.sqrt(6.0 / math.prod(v.shape[:-1])) / 0.01)
+        else:
+            out[k] = v
+    return out
+
+
+def r50_model_state(seed, dev, n=8):
+    """The BBB ResNet-50 at published widths (A7/W8) and an INT state made
+    from --seed (no trained one is committed): the port's init with
+    Kaiming-wide kernels, a QAT pass over n seeded images that fits the
+    observers, the port's convert. Returns (model, state)."""
+    from qbn_tpu_torch.ops.stochastic import GeneratorNoise
+    from qbn_tpu_torch.utils import apply_model, convert_model
+    model = build_model(Config(model=R50_MODEL, q=True, output_size=1000,
+                               input_size=R50_INPUT, activation_precision=7,
+                               weight_precision=8, sigma_prior=0.05))
+    g = torch.Generator().manual_seed(seed + 61)
+    v = tree_map(torch.Tensor.detach, init_variables(
+        model, g, R50_INPUT, dev, quantized=True))
+    v["params"] = _kaiming(v["params"])
+    x = torch.rand((n,) + R50_INPUT, generator=g).to(dev)
+    gd = torch.Generator(device=dev).manual_seed(seed + 62)
+    with torch.no_grad():
+        _o, _kl, v = apply_model(model, v, x, train=False, mode="qat",
+                                 update_stats=True,
+                                 noise=GeneratorNoise(gd),
+                                 masks=BernoulliMasks(gd, 1))
+        state = convert_model(model, v, x)
+    return model, state
+
+
+def _r50_conv_checks(seed, dev):
+    """Each distinct ResNet-50 conv shape at B=256, S=20 through the conv
+    kernel on the body its plan takes, bitwise against its plain version
+    (on chunks of the batch): the convs as a forward runs them (ReLU on,
+    or off on a shortcut; a block's conv_2 with the residual epilogue),
+    the raw sums of two images against the float64 sums and int64 window
+    sums; then each timed against its plain version and its bound, in
+    turns. Returns (largest code difference, {"all", "residual": (ms,
+    plain_ms, bound_ms, bound_by)} per batch: each shape's times its convs
+    per batch, summed."""
+    g = torch.Generator(device=dev).manual_seed(seed + 63)
+    err = 0
+    tot = dict(ms=0.0, plain=0.0, bytes=0, ops=0)
+    res_tot = dict(ms=0.0, plain=0.0, bytes=0, ops=0)
+    for (name, cin, cout, k, stride, hw, shared, n, r,
+         relu) in R50_SHAPES:
+        shape = (name, cin, cout, k, stride, hw, shared, n)
+        x, w, bias = _conv_inputs(R50_BATCH, R50_SAMPLES, shape, g, dev)
+        st, pads = (stride, stride), [(k // 2, k // 2)] * 2
+        plan = ic.merged_plan(x, w, st, pads, shared)
+        p_acc, p_win = ic.int_conv_sums_plain(x[:8], w, st, pads, shared)
+        acc, win = ic.int_conv_sums(x[:2], w, st, pads, shared,
+                                    _design=plan.design)
+        check(torch.equal(acc, p_acc[:2]) and torch.equal(win, p_win[:2]),
+              f"ResNet-50 {name}: raw sums differ from the float64 convs")
+        _spot_check(x[:2], w, stride, k // 2, shared, acc, win, seed=seed)
+        x_scale, w_scale, w_zp = (_f32(0.0794982761, dev),
+                                  _f32(0.00115220679, dev), _i32(-6, dev))
+        os_, oz = _out_qparams(p_acc, p_win, x_scale, w_scale, w_zp, 127)
+        del acc, win, p_acc, p_win
+        ho = (hw + 2 * (k // 2) - k) // stride + 1
+        # (convs a batch, args, kwargs, what)
+        runs = []
+        if n > r:
+            runs.append((n - r, (x, x_scale, w, w_scale, w_zp, bias, os_,
+                                 oz, st, pads, 0, 127, relu, shared), {},
+                         f"relu={relu}"))
+        if r:
+            rq = dict(residual=torch.randint(
+                          -60, 60, (R50_BATCH, ho, ho, R50_SAMPLES * cout),
+                          generator=g, device=dev, dtype=torch.int8),
+                      res_scale=_f32(0.105613649, dev),
+                      res_out_scale=_f32(0.124463566, dev),
+                      res_out_zp=_i32(63, dev), res_relu=True)
+            runs.append((r, (x, x_scale, w, w_scale, w_zp, bias, os_, oz,
+                             st, pads, 0, 127, False, shared), rq,
+                         "residual epilogue"))
+        codes = R50_BATCH * ho * ho * R50_SAMPLES * cout
+        nbytes = (x.numel() // (hw * hw) * _rows_read(hw, k, stride, ho)
+                  ** 2 + w.numel() + codes + 4 * cout)
+        ops = 2 * codes * k * k * cin
+        for m, a, kw, what in runs:
+            got = ic.int_conv_merged(*a, **kw)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            want = _plain_chunked(a, kw, R50_BATCH)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            e = _codes_err(got, want, f"ResNet-50 {name} ({plan.design}) "
+                           f"{what}")
+            err = max(err, e)
+            uniq = len(torch.unique(got[:8]))
+            del got, want
+
+            def kernel():
+                ic.int_conv_merged(*a, **kw)
+
+            t = [cuda_ms(kernel, iters=3, warmup=1) for _ in range(2)]
+            ms = sum(t) / 2
+            m_bytes = nbytes + (codes if kw else 0)
+            bound_ms = 1e3 * max(m_bytes / HBM_BYTES_PER_S,
+                                 ops / INT8_OPS_PER_S)
+            print(f"int_conv ResNet-50 {name} {what} x{m}/batch: "
+                  f"{describe_plan(plan)}; K={k * k * cin} B={R50_BATCH} "
+                  f"S={R50_SAMPLES} raw sums == float64 convs == int64 "
+                  f"windows; codes == plain ({uniq} distinct in 8 "
+                  f"images); kernel {t[0]:.4f}/{t[1]:.4f} ms, plain "
+                  f"{plain_ms:.1f} ms, "
+                  f"bound {bound_ms:.4f} ms, kernel at "
+                  f"{bound_ms / ms:.1%} of its bound", flush=True)
+            for d in (tot, res_tot) if kw else (tot,):
+                for key, v in (("ms", ms), ("plain", plain_ms),
+                               ("bytes", m_bytes), ("ops", ops)):
+                    d[key] += m * v
+        del x, w, bias, runs
+        torch.cuda.empty_cache()
+
+    out = {}
+    for key, t in (("all", tot), ("residual", res_tot)):
+        b_ms = 1e3 * t["bytes"] / HBM_BYTES_PER_S
+        o_ms = 1e3 * t["ops"] / INT8_OPS_PER_S
+        out[key] = (t["ms"], t["plain"], max(b_ms, o_ms),
+                    "bytes" if b_ms >= o_ms else "operations")
+    print(f"int_conv ResNet-50 per batch ({R50_CONVS} convs, "
+          f"{R50_RESIDUAL} of them with the residual epilogue; B="
+          f"{R50_BATCH}, S={R50_SAMPLES}): kernel {out['all'][0]:.2f} ms, "
+          f"plain {out['all'][1]:.1f} ms, bound {out['all'][2]:.3f} ms by "
+          f"{out['all'][3]}; the {R50_RESIDUAL} residual convs "
+          f"{out['residual'][0]:.2f} ms, plain {out['residual'][1]:.1f} ms,"
+          f" bound {out['residual'][2]:.3f} ms")
+    return err, out
+
+
+def phase_resnet50(seed, dev):
+    """The BBB ResNet-50 v1.5 at published widths: each distinct conv shape
+    against its plain version and timed (_r50_conv_checks); `evaluate` on
+    R50_BATCHES seeded batches of B=256, S=20 with the counts set to 0
+    before it (a draw, 53 conv launches, all on the im2col body, and 16
+    residual epilogues a batch); one forward at B=8, S=4 with the span
+    recorder on (one `op.max_pool` span); that forward with explicit
+    noise through the kernel path and the plain path, identical codes at
+    every cut. Returns (counts, largest code difference, conv times)."""
+    from qbn_tpu_torch import profiling
+    err, times = _r50_conv_checks(seed, dev)
+    model, state = r50_model_state(seed, dev)
+    plan = presample_plan(state)
+    check(len(plan) == R50_CONVS + 1, f"{len(plan)} stochastic layers")
+    rng = np.random.default_rng(seed + 64)
+    data = [(rng.random((R50_BATCH,) + R50_INPUT, dtype=np.float32),
+             rng.integers(0, 1000, R50_BATCH)) for _ in range(R50_BATCHES)]
+    _reset_counts()
+    _metric_state, probs, seconds = evaluate(
+        model, state, data, R50_SAMPLES,
+        torch.Generator().manual_seed(seed), dev)
+    counts = dict(draw=sw.launches, conv=ic.launches,
+                  conv_by_design=dict(ic.launches_by_design),
+                  conv_residual=ic.launches_residual)
+    check(counts["draw"] == R50_BATCHES, f"draw launches {counts['draw']}")
+    check(counts["conv"] == R50_CONVS * R50_BATCHES,
+          f"conv launches {counts['conv']} in {R50_BATCHES} batches")
+    check(counts["conv_by_design"] == {"halo": 0, "pixel": 0,
+                                       "im2col": R50_CONVS * R50_BATCHES},
+          f"conv launches by design {counts['conv_by_design']}")
+    check(counts["conv_residual"] == R50_RESIDUAL * R50_BATCHES,
+          f"residual epilogues {counts['conv_residual']} in "
+          f"{R50_BATCHES} batches")
+    check(not any(ic.launches_shared_w.values()),
+          f"shared-weight conv launches {ic.launches_shared_w}")
+    for p in probs:
+        check(p.shape == (R50_BATCH, 1000), f"probs shape {tuple(p.shape)}")
+        check(float((p.sum(-1) - 1).abs().max()) < 1e-5,
+              "probabilities do not sum to 1")
+    es = R50_BATCH * R50_SAMPLES
+    print(f"ResNet-50 evaluate: {R50_BATCHES} batches of B={R50_BATCH} x "
+          f"S={R50_SAMPLES}, ms " + ", ".join(f"{1e3 * s:.1f}"
+                                              for s in seconds)
+          + f", last {es / seconds[-1]:.0f} example-samples/s; launches: "
+          f"draw {counts['draw']}, conv {counts['conv']} (by design "
+          f"{counts['conv_by_design']}), residual epilogue "
+          f"{counts['conv_residual']}; top probability mean "
+          f"{float(probs[-1].max(-1).values.mean()):.4f}")
+    del probs, data
+
+    layers = plan_layers(state, plan)
+    g = torch.Generator(device=dev).manual_seed(seed + 65)
+    noise = [torch.randn((SMALL_SAMPLES,) + tuple(w.shape), generator=g,
+                         device=dev) for (w, *_r) in layers]
+    x = torch.rand((SMALL_BATCH,) + R50_INPUT, generator=g, device=dev)
+    with torch.no_grad():
+        k_tree = draw_sampled_weights(state, plan, SMALL_SAMPLES,
+                                      noise=noise)
+        p_tree = sampled_tree(plan, plain_draw(layers, noise))
+        profiling.start()
+        try:
+            mc_predict(model, state, x, samples=SMALL_SAMPLES,
+                       presampled=k_tree)
+        finally:
+            spans = profiling.stop()
+        n_pool = [s.name for s in spans].count("op.max_pool")
+        check(n_pool == 1, f"{n_pool} op.max_pool spans in a forward")
+        for cut in CUTS + (None,):
+            a = mc_predict(model, state, x, samples=SMALL_SAMPLES,
+                           presampled=k_tree, up_to=cut)
+            with conv_route(lambda _real, *args, **kw:
+                            ic.int_conv_merged_plain(*args, **kw)):
+                b = mc_predict(model, state, x, samples=SMALL_SAMPLES,
+                               presampled=p_tree, up_to=cut)
+            if cut is None:
+                d = float((a - b).abs().max())
+                check(d == 0.0, f"ResNet-50 probabilities differ by {d}")
+                top = float(a.max(-1).values.mean())
+                what = f"top probability mean {top:.4f}"
+            else:
+                _same_codes(a, b, f"ResNet-50 cut {cut}")
+                n_codes = len(torch.unique(a.codes))
+                check(n_codes >= 16, f"ResNet-50 cut {cut}: the codes take "
+                      f"{n_codes} values")
+                what = f"{n_codes} distinct codes"
+            print(f"ResNet-50 B={SMALL_BATCH} S={SMALL_SAMPLES}: kernel path "
+                  f"== plain path at cut {cut or 'probs'} ({what})")
+            del a, b
+    print("ResNet-50 forward with the recorder on: 1 op.max_pool span")
+    del k_tree, p_tree, state, model
+    torch.cuda.empty_cache()
+    return counts, err, times
 
 
 def dense_bound(x, w, sp, eps):
@@ -4628,6 +4941,9 @@ def main(argv=None) -> int:
                                    ("mlp_head", DENSE_SHAPES[5]))}
         conv_times = phase_conv_times(args.seed)
         shared_times, shared_err = phase_shared_conv_times(args.seed)
+        torch.cuda.empty_cache()
+    with Phase("resnet50"):
+        r50_counts, r50_err, r50_times = phase_resnet50(args.seed, dev)
     print("INT paths, steady ms per batch: " + ", ".join(
         f"{k} {v:.1f}" for k, v in m_ms.items()))
     print("ResNet training, ms per steady step: " + ", ".join(
@@ -4664,7 +4980,8 @@ def main(argv=None) -> int:
           f"{q_counts['draw']} (INT after QAT) + {g_counts['draw']} "
           f"(regression INT) + {h_counts['draw']} (harness) + "
           f"{u_counts['draw']} (runner) + {v_counts['draw']} (serving) + "
-          f"{p_counts['draw']} (parallel ranks); dense {dense_launches} "
+          f"{p_counts['draw']} (parallel ranks) + {r50_counts['draw']} "
+          f"(ResNet-50); dense {dense_launches} "
           f"(LeNet) + {sum(r_launches.values())} (ResNet fit) + "
           f"{q_counts['dense']} (QAT) + {g_counts['dense']} (regression, "
           f"by (K, N) {dict(by_kn)}) + {u_counts['dense']} (runner) + "
@@ -4672,7 +4989,9 @@ def main(argv=None) -> int:
           f"{conv_launches} (main) + {q_counts['conv']} (BBB INT after "
           f"QAT) + {h_counts['conv']} (harness) + {u_counts['conv']} "
           f"(runner) + {v_counts['conv']} (serving) + {p_counts['conv']} "
-          f"(parallel ranks), shared weights "
+          f"(parallel ranks) + {r50_counts['conv']} (ResNet-50), of them "
+          f"with the residual epilogue {residual} (main) + "
+          f"{r50_counts['conv_residual']} (ResNet-50), shared weights "
           f"{sum(m_launches.values())} (methods) + {q_counts['conv_shared']}"
           f" (INT after QAT) + {s_counts['conv_shared']} (SGHMC ensemble)")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
@@ -4682,7 +5001,8 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES,
         "launches": (launches + q_counts["draw"] + g_counts["draw"]
                      + h_counts["draw"] + u_counts["draw"]
-                     + v_counts["draw"] + p_counts["draw"]),
+                     + v_counts["draw"] + p_counts["draw"]
+                     + r50_counts["draw"]),
         "max_abs_err": max(max_err, g_counts["draw_err"]), "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
@@ -4706,21 +5026,24 @@ def main(argv=None) -> int:
         "bound_by": mlp[key][4], "library_ms": mlp[key][2]}
         for key in ("mlp_in", "mlp_head")]
         + [{
-        # the conv kernel per batch, then each body: the halo and pixel
-        # bodies on the main path, the im2col body (no launch there) timed
-        # on every shape in turns with them
+        # the ResNet-18's conv kernel per batch, then each body: the halo
+        # and pixel bodies on its main path, the im2col body timed on
+        # every shape in turns with them; the launches of every path, the
+        # ResNet-50's (all on the im2col body) among them
         "name": "int_conv" + ("" if key == "all" else f"/{key}"),
         "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
         "launches": (conv_launches + q_counts["conv"] + h_counts["conv"]
                      + u_counts["conv"] + v_counts["conv"]
-                     + p_counts["conv"] if key == "all"
+                     + p_counts["conv"] + r50_counts["conv"] if key == "all"
                      else by_design[key] + q_counts["conv_by_design"][key]
                      + h_counts["conv_by_design"][key]
                      + u_counts["conv_by_design"][key]
                      + v_counts["conv_by_design"][key]
-                     + p_counts["conv_by_design"][key]),
-        "max_abs_err": (max(conv_errs.values()) if key == "all" else
-                        conv_errs[key]),
+                     + p_counts["conv_by_design"][key]
+                     + r50_counts["conv_by_design"][key]),
+        "max_abs_err": (max(*conv_errs.values(), r50_err) if key == "all"
+                        else max(conv_errs[key], r50_err)
+                        if key == "im2col" else conv_errs[key]),
         "ms": conv_times[key][0], "plain_ms": conv_times[key][1],
         "bound_ms": conv_times[key][2], "bound_by": conv_times[key][3],
         "library_ms": None} for key in ("all", "halo", "pixel", "im2col")]
@@ -4737,19 +5060,32 @@ def main(argv=None) -> int:
         "bound_by": shared_times[3], "library_ms": None}]
         + [{
         # the conv kernel's residual epilogue (bconv's fused add) on the
-        # BBB paths: each block's conv_bn runs its add and ReLU; those 8
-        # convs a batch timed with it, checked on every body in phase
-        # int_conv
+        # BBB paths: each block's conv_bn (the ResNet-50's conv_2) runs
+        # its add and ReLU; the ResNet-18's 8 convs a batch timed with
+        # it, checked on every body in phase int_conv
         "name": "int_conv/residual", "route": "cuda",
         "source": CONV_SOURCE, "replaces": RESIDUAL_REPLACES,
         "launches": residual + sum(c["conv_residual"] for c in (
-            q_counts, h_counts, u_counts, v_counts, p_counts)),
-        "max_abs_err": max(conv_errs.values()),
+            q_counts, h_counts, u_counts, v_counts, p_counts, r50_counts)),
+        "max_abs_err": max(*conv_errs.values(), r50_err),
         "ms": conv_times["residual"][0],
         "plain_ms": conv_times["residual"][1],
         "bound_ms": conv_times["residual"][2],
         "bound_by": conv_times["residual"][3],
-        "library_ms": None}]}))
+        "library_ms": None}]
+        + [{
+        # the conv kernel on the BBB ResNet-50 at B=256, S=20: its 53
+        # convs a batch (all on the im2col body), then the 16 of them
+        # with the residual epilogue; their launches in phase resnet50
+        "name": f"int_conv/resnet50{suffix}", "route": "cuda",
+        "source": CONV_SOURCE, "replaces": replaces,
+        "launches": r50_counts[count], "max_abs_err": r50_err,
+        "ms": r50_times[key][0], "plain_ms": r50_times[key][1],
+        "bound_ms": r50_times[key][2], "bound_by": r50_times[key][3],
+        "library_ms": None} for suffix, replaces, count, key in (
+            ("", CONV_REPLACES, "conv", "all"),
+            ("_residual", RESIDUAL_REPLACES, "conv_residual",
+             "residual"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

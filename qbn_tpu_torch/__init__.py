@@ -10,6 +10,8 @@ What is ported so far:
   (`evaluation.mc.evaluate`): the bulk posterior weight draw kernel,
   `csrc/sample_weights.cu`, and the int8 conv kernel, `csrc/int_conv.cu`;
 - float Monte-Carlo evaluation of float models (`evaluate(mode="float")`);
+- the ImageNet ResNet-50 v1.5 (bottleneck blocks, `conv_resnet50`) in
+  every mode, held to its plain reference (`reference/resnet50.py`);
 - float training of the four methods on the regression MLP, the MNIST
   LeNet and the CIFAR ResNet-18 with batch norm (`flows.fit`: Adam, or
   the adaptive clip and SGHMC, with qbn_tpu's checkpoint policy and

@@ -106,7 +106,9 @@ class Config:
 
     @property
     def arch(self) -> str:
-        """Architecture family: linear | conv_lenet | conv_resnet."""
+        """Architecture family: linear (the regression MLP) | conv_lenet
+        (the MNIST LeNet) | conv_resnet (the CIFAR ResNet-18) |
+        conv_resnet50 (the ImageNet ResNet-50 v1.5)."""
         name = self.model
         for suffix in ("_bbb", "_sgld", "_mc"):
             if name.endswith(suffix):

@@ -25,6 +25,13 @@ log = logging.getLogger(__name__)
 CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
 CIFAR_INV_STD = (np.float32(1.0) / CIFAR_STD).astype(np.float32)
+# torchvision's ImageNet normalisation
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+_NORMS = {"cifar": (CIFAR_MEAN, CIFAR_INV_STD),
+          "svhn": (CIFAR_MEAN, CIFAR_INV_STD),
+          "imagenet": (IMAGENET_MEAN,
+                       (np.float32(1.0) / IMAGENET_STD).astype(np.float32))}
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +203,12 @@ def load_images(name: str, data_dir: str, train: bool):
 
 
 def normalize(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
-    """CIFAR and SVHN: (x - mean) times the float32 reciprocal of the std,
-    on x's device, as qbn_tpu computes it (a multiply, not a divide, so
-    that its host and device pipelines agree bit for bit); MNIST and
-    FashionMNIST (name None or another): x as it is."""
-    if name not in ("cifar", "svhn"):
+    """CIFAR and SVHN (CIFAR's constants), and ImageNet (torchvision's):
+    (x - mean) times the float32 reciprocal of the std, on x's device, as
+    qbn_tpu computes it (a multiply, not a divide, so that its host and
+    device pipelines agree bit for bit); MNIST and FashionMNIST (name None
+    or another): x as it is."""
+    if name not in _NORMS:
         return x
-    mean = torch.from_numpy(CIFAR_MEAN).to(x.device)
-    inv_std = torch.from_numpy(CIFAR_INV_STD).to(x.device)
+    mean, inv_std = (torch.from_numpy(v).to(x.device) for v in _NORMS[name])
     return (x - mean) * inv_std

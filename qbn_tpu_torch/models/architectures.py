@@ -6,9 +6,13 @@
   maxpool 2 -> conv(50) -> maxpool 2 -> flatten -> fc 500 + ReLU -> fc
   out -> softmax (the convs have no ReLU or BN). Returns probabilities.
 * CIFAR ResNet-18, float, qat, convert and int modes: widths
-  24/48/96/192, stages [2, 2, 2, 2], strides 1/2/2/2, every conv with
-  batch norm, avgpool 4, fc, softmax. Returns probabilities, or the int8
-  activations at an `up_to` cut (int mode).
+  24/48/96/192, basic blocks, stages [2, 2, 2, 2], strides 1/2/2/2, a
+  3x3/1 stem, every conv with batch norm, avgpool 4, fc, softmax.
+  Returns probabilities, or the int8 activations at an `up_to` cut (int
+  mode).
+* ImageNet ResNet-50 v1.5, the same modes and returns: a 7x7/2 stem, a
+  padded 3x3/2 max pool, bottleneck blocks, stages [3, 4, 6, 3] at widths
+  64/128/256/512 x 4, global avgpool, fc to 1000 classes.
 
 As in qbn_tpu, one definition serves every method: `stochastic` makes the
 blocks Bayes-by-backprop (int mode: the merged layout over drawn weights,
@@ -27,7 +31,7 @@ mask draws is qbn_tpu's.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -218,36 +222,42 @@ class LeNet(_Sites):
         return torch.softmax(dequant(x), dim=-1)
 
 
-class BasicBlock(_Sites):
-    """ResNet basic block: two 3x3 conv+BN, optional 1x1 conv+BN shortcut,
-    the MC-Dropout sites after each conv, and the residual add + ReLU.
-    In int mode on merged-layout input (Bayes-by-backprop) with no sites,
-    the add and its ReLU run inside conv_bn's kernel launch."""
+class _Residual(_Sites):
+    """A ResNet block: the convs of `main` in order, each followed by its
+    MC-Dropout site, an optional 1x1 conv+BN shortcut with its site, and
+    the residual add + ReLU. In int mode on merged-layout input
+    (Bayes-by-backprop) with no sites, the add and its ReLU run inside the
+    last conv's kernel launch."""
 
-    def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 stochastic: bool = False, dropout_p: float = 0.0,
-                 sigma_prior: float = 1.0,
-                 quant: QuantConfig = QuantConfig()):
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int, main,
+                 stochastic: bool, dropout_p: float, sigma_prior: float,
+                 quant: QuantConfig):
+        """main: [(name, features, kernel, stride, padding, relu)]."""
         super().__init__()
         self.dropout_p = dropout_p
         kw = dict(bn=True, stochastic=stochastic, sigma_prior=sigma_prior,
                   std_init=-10.0, quant=quant)
-        self.conv_bn_relu = ConvBlock(planes, (3, 3), (stride, stride),
-                                      padding=1, relu=True, **kw)
-        self._site("drop_0", quant)
-        self.conv_bn = ConvBlock(planes, (3, 3), (1, 1), padding=1, **kw)
-        self._site("drop_1", quant)
+        self.main = []
+        for i, (name, feats, k, st, pad, relu) in enumerate(main):
+            self.add_module(name, ConvBlock(feats, (k, k), (st, st),
+                                            padding=pad, relu=relu, **kw))
+            self._site(f"drop_{i}", quant)
+            self.main.append((name, f"drop_{i}"))
+        self.features = planes * self.expansion
         self.shortcut = None
-        if stride != 1 or in_planes != planes:
-            self.shortcut = ConvBlock(planes, (1, 1), (stride, stride),
+        if stride != 1 or in_planes != self.features:
+            self.shortcut = ConvBlock(self.features, (1, 1), (stride, stride),
                                       padding=0, **kw)
             self._site("drop_sc", quant)
         self.add = ResidualAdd(quant, relu=True)
 
     def init(self, generator, cin: int):
-        params = {"conv_bn_relu": self.conv_bn_relu.init(generator, cin)}
-        planes = self.conv_bn_relu.features
-        params["conv_bn"] = self.conv_bn.init(generator, planes)
+        params, c = {}, cin
+        for name, _site in self.main:
+            params[name] = getattr(self, name).init(generator, c)
+            c = getattr(self, name).features
         if self.shortcut is not None:
             params["shortcut"] = self.shortcut.init(generator, cin)
         return params
@@ -270,16 +280,18 @@ class BasicBlock(_Sites):
         if (mode == "int" and self.dropout_p <= 0
                 and isinstance(x, MergedQTensor)):
             # per-sample weights in the merged layout and no site between
-            # conv_bn and the add: the add and its ReLU run in conv_bn's
-            # epilogue (bitwise the add's own pass)
+            # the last conv and the add: the add and its ReLU run in that
+            # conv's epilogue (bitwise the add's own pass)
             shortcut = x if self.shortcut is None else conv("shortcut", x)
-            out = conv("conv_bn_relu", x)
-            return conv("conv_bn", out, residual=self.add.epilogue(
+            out = x
+            for name, _site in self.main[:-1]:
+                out = conv(name, out)
+            return conv(self.main[-1][0], out, residual=self.add.epilogue(
                 shortcut, scope(variables, "add")))
-        out = conv("conv_bn_relu", x)
-        out = self._drop("drop_0", out, variables, masks, **dkw)
-        out = conv("conv_bn", out)
-        out = self._drop("drop_1", out, variables, masks, **dkw)
+        out = x
+        for name, site in self.main:
+            out = conv(name, out)
+            out = self._drop(site, out, variables, masks, **dkw)
         shortcut = x
         if self.shortcut is not None:
             shortcut = conv("shortcut", x)
@@ -293,8 +305,48 @@ class BasicBlock(_Sites):
                         initializing=initializing)
 
 
+class BasicBlock(_Residual):
+    """ResNet basic block: two 3x3 conv+BN (conv_bn_relu carries the
+    stride), sites drop_0 and drop_1 after them."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 stochastic: bool = False, dropout_p: float = 0.0,
+                 sigma_prior: float = 1.0,
+                 quant: QuantConfig = QuantConfig()):
+        super().__init__(in_planes, planes, stride, [
+            ("conv_bn_relu", planes, 3, stride, 1, True),
+            ("conv_bn", planes, 3, 1, 1, False)], stochastic, dropout_p,
+            sigma_prior, quant)
+
+
+class Bottleneck(_Residual):
+    """ResNet v1.5 bottleneck block (torchvision's): 1x1 conv+BN+ReLU to
+    `planes`, 3x3 conv+BN+ReLU carrying the stride, 1x1 conv+BN to 4 x
+    planes; sites drop_0, drop_1 and drop_2 after them."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 stochastic: bool = False, dropout_p: float = 0.0,
+                 sigma_prior: float = 1.0,
+                 quant: QuantConfig = QuantConfig()):
+        super().__init__(in_planes, planes, stride, [
+            ("conv_0", planes, 1, 1, 0, True),
+            ("conv_1", planes, 3, stride, 1, True),
+            ("conv_2", planes * self.expansion, 1, 1, 0, False)],
+            stochastic, dropout_p, sigma_prior, quant)
+
+
+def _global_pool(x):
+    """Average pool over the whole (square) feature map."""
+    codes = x if isinstance(x, torch.Tensor) else x.codes
+    return avg_pool(x, codes.shape[-2])
+
+
 class ResNet(_Sites):
-    """CIFAR ResNet-18 at widths 24/48/96/192."""
+    """CIFAR ResNet-18 at widths 24/48/96/192 (the defaults); with
+    `block`, `stem` and `stem_pool` the other ResNets of the family
+    (ImageNetResNet)."""
 
     def __init__(self, output_size: int = 10,
                  widths: Sequence[int] = (24, 48, 96, 192),
@@ -302,12 +354,18 @@ class ResNet(_Sites):
                  strides: Sequence[int] = (1, 2, 2, 2),
                  stochastic: bool = False, dropout_p: float = 0.0,
                  sigma_prior: float = 1.0,
-                 quant: QuantConfig = QuantConfig()):
+                 quant: QuantConfig = QuantConfig(), block=BasicBlock,
+                 stem: Tuple[int, int, int] = (3, 1, 1),
+                 stem_pool: Optional[Tuple[int, int, int]] = None):
+        """stem: the stem conv's (kernel, stride, padding); stem_pool: the
+        max pool after it, (window, stride, padding), or None."""
         super().__init__()
         self.stochastic, self.dropout_p = stochastic, dropout_p
+        self.stem_pool = stem_pool
         self.input_quant = InputQuant(quant)
-        self.stem = ConvBlock(widths[0], (3, 3), (1, 1), padding=1, bn=True,
-                              relu=True, stochastic=stochastic,
+        k, st, pad = stem
+        self.stem = ConvBlock(widths[0], (k, k), (st, st), padding=pad,
+                              bn=True, relu=True, stochastic=stochastic,
                               sigma_prior=sigma_prior, std_init=-10.0,
                               quant=quant)
         self._site("drop_stem", quant)
@@ -318,11 +376,11 @@ class ResNet(_Sites):
             names = []
             for b in range(blocks):
                 name = f"stage{s}_block{b}"
-                self.add_module(name, BasicBlock(
-                    in_planes, planes, stride if b == 0 else 1, stochastic,
-                    dropout_p, sigma_prior, quant))
+                blk = block(in_planes, planes, stride if b == 0 else 1,
+                            stochastic, dropout_p, sigma_prior, quant)
+                self.add_module(name, blk)
                 names.append(name)
-                in_planes = planes
+                in_planes = blk.features
             self.stages.append(names)
         self.fc = DenseBlock(output_size, use_bias=False,
                              stochastic=stochastic, sigma_prior=sigma_prior,
@@ -337,7 +395,7 @@ class ResNet(_Sites):
             for name in names:
                 block = getattr(self, name)
                 params[name] = block.init(generator, cin)
-                cin = block.conv_bn.features
+                cin = block.features
         params["fc"] = self.fc.init(generator, cin)
         return params
 
@@ -351,7 +409,7 @@ class ResNet(_Sites):
         mask source; noise, kl, mutable as for the LeNet. Returns (B, S,
         classes) probabilities (BBB, int), (S, B, classes) (MC-Dropout,
         int) or (B, classes), or the codes at `up_to` (one of CUTS, int
-        mode)."""
+        mode; "stem" after the stem's pool)."""
         _check_mode(mode)
         if up_to is not None and (up_to not in CUTS or mode != "int"):
             raise ValueError(f"up_to must be one of {CUTS}, in int mode")
@@ -366,6 +424,8 @@ class ResNet(_Sites):
         x = self.stem(x, scope(variables, "stem"), kl=_child(kl, "stem"),
                       mutable=child(mutable, "stem"), **kw)
         x = self._drop("drop_stem", x, variables, masks, **dkw)
+        if self.stem_pool is not None:
+            x = max_pool(x, *self.stem_pool)
         if up_to == "stem":
             return x
         for s, names in enumerate(self.stages):
@@ -375,9 +435,24 @@ class ResNet(_Sites):
                     mutable=child(mutable, name), **kw)
             if up_to == f"stage{s}":
                 return x
-        x = flatten(avg_pool(x, 4))
+        x = flatten(_global_pool(x))
         if up_to == "pool":
             return x
         x = self.fc(x, scope(variables, "fc"), kl=_child(kl, "fc"),
                     mutable=child(mutable, "fc"), **kw)
         return torch.softmax(dequant(x), dim=-1)
+
+
+class ImageNetResNet(ResNet):
+    """ImageNet ResNet-50 v1.5 (torchvision's resnet50): a 7x7/2 stem of
+    64 channels with padding 3, BN and ReLU, a 3x3/2 max pool with
+    padding 1, bottleneck stages [3, 4, 6, 3] at widths 64/128/256/512
+    (outputs 4 x), the stride on each stage's first 3x3, global average
+    pool, dense head (no bias, as the CIFAR ResNet's)."""
+
+    def __init__(self, output_size: int = 1000,
+                 widths: Sequence[int] = (64, 128, 256, 512),
+                 num_blocks: Sequence[int] = (3, 4, 6, 3), **kw):
+        super().__init__(output_size, widths, num_blocks, (1, 2, 2, 2),
+                         block=Bottleneck, stem=(7, 2, 3),
+                         stem_pool=(3, 2, 1), **kw)

@@ -1,6 +1,8 @@
 """Model factory (port of qbn_tpu/models/factory.py): model name ->
 architecture, '<arch>[_<method>]' with arch in {linear, conv_lenet,
-conv_resnet} and the method suffix '' (pointwise), '_mc' (MC-Dropout),
+conv_resnet (the CIFAR ResNet-18), conv_resnet50 (the ImageNet ResNet-50
+v1.5, 1000 classes unless the config's output_size says otherwise)} and
+the method suffix '' (pointwise), '_mc' (MC-Dropout),
 '_bbb' or '_sgld' (an SGHMC ensemble: the pointwise templates, its members
 stacked on a leading axis of the state, evaluation/ensemble.py).
 
@@ -19,11 +21,12 @@ import os
 from qbn_tpu_torch.config import Config, QuantConfig
 from qbn_tpu_torch.convert import from_jax_state, to_device
 from qbn_tpu_torch.evaluation.ensemble import load_ensemble
-from qbn_tpu_torch.models.architectures import LeNet, MLPNet, ResNet
+from qbn_tpu_torch.models.architectures import (
+    ImageNetResNet, LeNet, MLPNet, ResNet)
 from qbn_tpu_torch.training.checkpoint import checkpoint_path, read_checkpoint
 from qbn_tpu_torch.utils import resolve_device
 
-_ARCHS = ("linear", "conv_lenet", "conv_resnet")
+_ARCHS = ("linear", "conv_lenet", "conv_resnet", "conv_resnet50")
 
 
 def build_model(cfg: Config):
@@ -40,6 +43,8 @@ def build_model(cfg: Config):
         model = MLPNet(output_size=1, **kw)
     elif cfg.arch == "conv_resnet":
         model = ResNet(output_size=cfg.output_size, **kw)
+    elif cfg.arch == "conv_resnet50":
+        model = ImageNetResNet(output_size=cfg.output_size, **kw)
     else:
         model = LeNet(output_size=cfg.output_size, **kw)
     model.method = method

@@ -60,6 +60,7 @@ from qbn_tpu_torch.ops.integer import (
 from qbn_tpu_torch.ops.stochastic import (
     conv_nhwc, kl_divergence, local_reparam_conv, local_reparam_dense_auto,
     sample_weights, softplus)
+from qbn_tpu_torch.profiling import span
 
 
 @dataclass
@@ -751,22 +752,31 @@ def dequant(x):
     return dequantize_codes(x.codes, x.scale)
 
 
-def max_pool(x, window: int = 2, stride: int = 2):
-    """Max pool over (H, W), 'VALID' windows: float NHWC activations, or
-    int codes (..., H, W, C) of any of the code layouts, pooled by max
-    directly as qbn_tpu's reduce_window does."""
+def max_pool(x, window: int = 2, stride: int = 2, padding: int = 0):
+    """Max pool over (H, W): float NHWC activations, or int codes (..., H,
+    W, C) of any of the code layouts, pooled by max directly as qbn_tpu's
+    reduce_window does. `padding` pads each side (padding 0: 'VALID'
+    windows), floats with -inf and codes with the lowest code, so that the
+    padding never wins. The codes' pass is a span `op.max_pool`
+    (profiling.span)."""
     if isinstance(x, torch.Tensor):
-        y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
         return y.permute(0, 2, 3, 1)
-    h, w = x.codes.shape[-3:-1]
-    ho, wo = (h - window) // stride + 1, (w - window) // stride + 1
-    out = None
-    for i in range(window):
-        for j in range(window):
-            v = x.codes[..., i:i + (ho - 1) * stride + 1:stride,
-                        j:j + (wo - 1) * stride + 1:stride, :]
-            out = v if out is None else torch.maximum(out, v)
-    return dataclasses.replace(x, codes=out.contiguous())
+    with span("op.max_pool"):
+        codes = x.codes
+        if padding:
+            low = torch.iinfo(codes.dtype).min
+            codes = F.pad(codes, (0, 0, padding, padding, padding, padding),
+                          value=low)
+        h, w = codes.shape[-3:-1]
+        ho, wo = (h - window) // stride + 1, (w - window) // stride + 1
+        out = None
+        for i in range(window):
+            for j in range(window):
+                v = codes[..., i:i + (ho - 1) * stride + 1:stride,
+                          j:j + (wo - 1) * stride + 1:stride, :]
+                out = v if out is None else torch.maximum(out, v)
+        return dataclasses.replace(x, codes=out.contiguous())
 
 
 def avg_pool(x, window: int):
