@@ -39,11 +39,11 @@
 // outside the image read code 0, the activation zero point, which adds
 // nothing to the sum or the window sum. Offsets are 64-bit.
 //
-// Three bodies, chosen by shape in ops/int_conv.py (plan_conv), never on
+// Four bodies, chosen by shape in ops/int_conv.py (plan_conv), never on
 // failure; all compute each code with the same epilogue (epi_code and
 // res_code below).
 //
-// "im2col" (any shape the other two do not take). One CTA of 256 threads
+// "im2col" (any shape the other three do not take). One CTA of 256 threads
 // (8 warps) computes 128 output pixels x up to 96 output channels of one
 // sample; consecutive CTAs take consecutive
 // samples, so the CTAs in flight read and write whole runs of the merged
@@ -93,6 +93,29 @@
 // read in 4-byte words and transposed into shared memory, zero past K;
 // each sample's codes go to a staging buffer, and the CTA writes every
 // pixel's run of the group in 8- or 16-byte pieces.
+//
+// "wide" (the 1x1 and 3x3 convs at stride 1 or 2 with cin % 16 == 0 and
+// cout % 64 == 0 that the halo and pixel bodies decline: the 52 non-stem
+// convs of the ResNet-50, 64 to 2048 channels). A pipelined implicit GEMM
+// of one sample's conv on wgmma: a CTA owns 128 output pixels x 128
+// channels (64 where cout is 64); K streams through a ring of 3 or 4
+// stages of 128 bytes in shared memory by 16-byte cp.async, stage kt + R - 1
+// in flight while stage kt is multiplied; the weights reach it as K-major
+// rows, transposed once a call by int_conv_kernel_wide_wt (the draw's
+// layout is kept). It replaces no TPU kernel beyond conv_gemm.py's
+// _kernel (the Pallas kernel ran every conv shape); it exists because the
+// halo body's tiles of whole output rows cannot take widths of 56, 28, 14
+// or 7, and the pixel body's whole-K weight slices cannot take K past
+// about 256. What bounds it: by the shapes, the bytes (the ResNet-50's 52
+// convs read and write about 39 ms of them a B = 256, S = 20 batch, against
+// 20 ms of int8 products at the card's peak); as measured on the H100, the
+// epilogue's instructions (about 50 a code over 52.8 G codes, and the
+// residual's over 28.2 G more) set its pace, then the 3x3 convs' gathers
+// of each input byte from L2 once per tap. The ring keeps the loads in
+// flight while the tensor cores work, the channel tiles of a pixel tile run
+// together so its activations come from device memory once, the samples
+// run in groups whose weight slices stay in L2, and two CTAs an SM run one's
+// loads and products under the other's epilogue.
 //
 // What bounds it on an H100: the bytes. The 20 convs of the flagship
 // ResNet-18 at B = 256, S = 100 do 2.01 T int8 multiply-adds (4.02 T
@@ -153,7 +176,11 @@ struct QbnConvArgs {
   long long ring;
   long long smem;
   // the pixel body: samples per group and per CTA, output store width
+  // (also the wide body's)
   long long pixel, sg, s_cta, vo;
+  // the wide body: its weights transposed to (S, cout, K), written first
+  long long wide;
+  int8_t* wt;
 };
 
 namespace {
@@ -277,6 +304,18 @@ __device__ __forceinline__ int8_t res_code(const Res& p, int8_t c, int8_t r,
   return (int8_t)(int)requant(y, p.ro_scale, p.ro_zp, p.relu, lo, hi);
 }
 
+// the residual epilogue on 4 codes at once
+__device__ __forceinline__ uint32_t res_word(const Res& rp, uint32_t v,
+                                             uint32_t r, float lo, float hi) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    out |= (uint32_t)(uint8_t)res_code(rp, (int8_t)(v >> (8 * e)),
+                                       (int8_t)(r >> (8 * e)), lo, hi)
+           << (8 * e);
+  return out;
+}
+
 // The epilogue of the halo and im2col bodies. The 8 warps are
 // (8 / WN) x WN: warp w's MT m16 tiles are rows
 // 16 MT (w / WN) + 16 i + g (+ 8), its NTW n8 tiles
@@ -348,18 +387,10 @@ __device__ __forceinline__ void conv_epilogue(
       if (off < 0) continue;
       uint32_t v = *reinterpret_cast<const uint32_t*>(Os + r * BN + 4 * q);
       const long long o = off + n0 + 4 * q;
-      if (has_res) {
-        const uint32_t rv = __ldg(reinterpret_cast<const unsigned int*>(
-            a.res + o));
-        uint32_t nv = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int8_t c = res_code(rp, (int8_t)(v >> (8 * e)),
-                                    (int8_t)(rv >> (8 * e)), p.lo, p.hi);
-          nv |= (uint32_t)(uint8_t)c << (8 * e);
-        }
-        v = nv;
-      }
+      if (has_res)
+        v = res_word(rp, v,
+                     __ldg(reinterpret_cast<const unsigned int*>(a.res + o)),
+                     p.lo, p.hi);
       *reinterpret_cast<uint32_t*>(a.out + o) = v;
     }
   } else {
@@ -1110,6 +1141,362 @@ int_conv_pixel_kernel(const QbnConvArgs a) {
   }
 }
 
+// -- the wide body --------------------------------------------------------
+
+constexpr int kWideBK = 128;   // K bytes of a ring stage: 8 pieces of 16
+
+// ring stages: 3 x 32 KB at 128 channels, 4 x 24 KB at 64, so that two
+// CTAs fit on an SM
+template <int BN>
+__host__ __device__ constexpr int wide_ring() {
+  return BN == 128 ? 3 : 4;
+}
+
+// A wgmma shared-memory descriptor of a K-major operand without swizzle:
+// core matrices of 8 rows x 16 bytes, lbo bytes apart along K and sbo
+// bytes apart along M (or N)
+__device__ __forceinline__ uint64_t wgmma_desc(const int8_t* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the accumulators stay where wgmma writes them: no copy between the
+// products' issue and their wait
+template <int N>
+__device__ __forceinline__ void pin(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// cp.async's writes become visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a 16-byte cp.async that bypasses L1 (each piece is read once, from
+// shared memory; allocating the pieces in L1 measured slower on the H100);
+// src_bytes 0 zero-fills
+__device__ __forceinline__ void cp_async_cg16(void* dst, const void* src,
+                                              bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+// The weights of the wide body, (S, K, cout) as the draw writes them, to
+// (S, cout, K): the K-major rows that s8 wgmma reads. One CTA transposes
+// 64 k rows x 64 channels through shared memory (a word column of 4
+// channels x 4 k rows a thread, by __byte_perm); K % 16 == 0, cout % 64 ==
+// 0. One pass a call: each weight byte read and written once.
+__global__ void __launch_bounds__(kThreads)
+int_conv_kernel_wide_wt(const int8_t* w, int8_t* wt, int K, int cout) {
+  __shared__ uint32_t T[64][17];   // [k][4-channel word], one word of pad
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
+  const long long so = (long long)blockIdx.z * K * cout;
+  {
+    const int k = tid >> 2, q = 4 * (tid & 3);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (k0 + k < K)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          w + so + (long long)(k0 + k) * cout + n0 + 4 * q));
+    T[k][q] = v.x;
+    T[k][q + 1] = v.y;
+    T[k][q + 2] = v.z;
+    T[k][q + 3] = v.w;
+  }
+  __syncthreads();
+  const int kq = tid & 15, nw = tid >> 4;   // k rows 4 kq.., channels 4 nw..
+  if (k0 + 4 * kq >= K) return;
+  uint32_t r[4], c[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) r[e] = T[4 * kq + e][nw];
+  transpose4(r, c);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<uint32_t*>(
+        wt + so + (long long)(n0 + 4 * nw + j) * K + k0 + 4 * kq) = c[j];
+}
+
+// Its kernels are named int_conv_kernel_* as the im2col body is, so that
+// what matches the conv kernel by name (portbench's port-kernel list and
+// its int_conv roofline) counts them with it.
+// A CTA owns one sample s, BM = 128 consecutive output pixels and BN output
+// channels. The samples run in groups of sg (blockIdx.y: the group), and
+// blockIdx.x runs over the group's channel tiles fastest, then its samples,
+// then the pixel tiles: the CTAs of one pixel tile read its A rows once from
+// device memory, in runs of sg * cin bytes a pixel, and the group's weight
+// slices (the plan keeps them to about 16 MB) stay in L2 while its pixel
+// tiles run. K advances in stages of 128 bytes through a ring of R
+// stages in shared memory, stage kt + R - 1 in flight while stage kt is
+// multiplied:
+//   A, 128 pixels x 128 K bytes, [piece][pixel][16]: thread tid gathers
+//     pixel tid / 2's 16-byte pieces tid % 2, + 2, + 4, + 6 by cp.async.
+//     The piece's tap and channel come from the plan's table (koff: dh,
+//     dw, ci, or -1 past K): cin % 16 == 0 keeps a piece inside one tap.
+//     Taps outside the image, pixels past M and bytes past K read 0
+//     (src-size 0; code 0 is the zero point and adds nothing).
+//   B, BN channels x 128 K bytes, [piece][channel][16], from the weights
+//     transposed once a call (int_conv_kernel_wide_wt).
+// Both are K-major core matrices of 8 rows x 16 bytes, as wgmma reads them
+// without swizzle; the stores of a warp's 32 pieces fall in distinct banks.
+// The two warpgroups each run m64nBNk32 s8 wgmma on 64 of the pixels, 4 a
+// stage (fewer where K ends inside it), while every thread adds its own
+// pieces' bytes to its pixel's window sum (__dp4a). The codes (epi_code,
+// res_code: the other bodies' epilogue) are staged [pixel][BN + 16] in the
+// ring's memory, and the CTA writes each pixel's run of BN codes, and reads
+// its residual, in 16-byte pieces where every address allows.
+template <int BN, bool WS>
+__global__ void __launch_bounds__(kThreads, 2)
+int_conv_kernel_wide(const QbnConvArgs a) {
+  constexpr int BM = kBM, R = wide_ring<BN>();
+  constexpr int A_BYTES = BM * kWideBK, STAGE = A_BYTES + BN * kWideBK;
+  constexpr int OP = BN + 16;   // staged codes' row pitch
+  extern __shared__ __align__(16) int8_t smem[];
+  // [ring R x (A | B), later the staged codes | rowsum | out_off | taps]
+  int* rowsum = reinterpret_cast<int*>(smem + R * STAGE);
+  long long* out_off = reinterpret_cast<long long*>(rowsum + BM);
+  int* taps = reinterpret_cast<int*>(out_off + BM);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_tiles = (int)(a.cout / BN), sg = (int)a.sg;
+  const int n0 = (int)(blockIdx.x % n_tiles) * BN;
+  const int rest = blockIdx.x / n_tiles;
+  const int s = blockIdx.y * sg + rest % sg;
+  const long long m0 = (long long)(rest / sg) * BM;
+  if (s >= (int)a.S) return;   // past the last group's samples
+  const int K = (int)(a.kh * a.kw * a.cin);
+  const int KT = (K + kWideBK - 1) / kWideBK;
+  const long long M = a.B * a.Ho * a.Wo;
+  for (int i = tid; i < KT * 8; i += kThreads) taps[i] = __ldg(a.koff + i);
+  row_offsets(a, out_off, m0, s, BM);
+  __syncthreads();   // taps visible to every thread
+
+  // this thread's pixel r and its window origin; weight row nrow
+  const int r = tid >> 1, half = tid & 1;
+  const unsigned H = (unsigned)a.H, W = (unsigned)a.W;
+  const bool row_ok = m0 + r < M;
+  long long xbase = 0;
+  int h0 = 0, w0 = 0;
+  if (row_ok) {
+    const long long hw_o = a.Ho * a.Wo, m = m0 + r;
+    const long long b = m / hw_o;
+    const int rem = (int)(m - b * hw_o), Wo = (int)a.Wo;
+    h0 = rem / Wo * (int)a.stride - (int)a.pad;
+    w0 = (rem - rem / Wo * Wo) * (int)a.stride - (int)a.pad;
+    xbase = b * a.x_sb + s * a.x_ss;
+  }
+  const int nrow = (tid >> 1) % BN, nc0 = (tid >> 1) / BN;
+  const int8_t* wrow = a.wt + (WS ? 0 : (long long)s * a.cout * K) +
+                       (long long)(n0 + nrow) * K;
+
+  auto load_stage = [&](int kt, int slot) {
+    int8_t* As = smem + slot * STAGE;
+    int8_t* Bs = As + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 2 * i + half;
+      const int tap = taps[kt * 8 + c];
+      const int hi = h0 + (tap >> 24), wi = w0 + ((tap >> 20) & 15);
+      const bool in = row_ok && tap >= 0 && (unsigned)hi < H &&
+                      (unsigned)wi < W;
+      cp_async_cg16(As + c * (BM * 16) + r * 16,
+                    in ? a.x + xbase + hi * a.x_sh + wi * a.x_sw +
+                             (tap & 0xFFFFF)
+                       : a.x,
+                    in);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 32; ++i) {
+      const int c = 2 * (nc0 + i * (128 / BN)) + half;
+      const int k = kt * kWideBK + 16 * c;
+      cp_async_cg16(Bs + c * (BN * 16) + nrow * 16, k < K ? wrow + k : a.wt,
+                    k < K);
+    }
+  };
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  int rs = 0;
+  const int wg = warp >> 2;   // this warpgroup's pixels: 64 wg ..
+#pragma unroll
+  for (int st = 0; st < R - 1; ++st) {
+    if (st < KT) load_stage(st, st);
+    cp_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_wait<R - 2>();
+    fence_proxy_async();
+    __syncthreads();   // stage kt landed for all; slot (kt - 1) % R is free
+    if (kt + R - 1 < KT) load_stage(kt + R - 1, (kt + R - 1) % R);
+    cp_commit();
+    const int8_t* As = smem + (kt % R) * STAGE;
+    const int8_t* Bs = As + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kt * kWideBK + 32 * j < K)
+        wgmma_s8(acc,
+                 wgmma_desc(As + 2 * j * (BM * 16) + wg * (64 * 16), BM * 16,
+                            128),
+                 wgmma_desc(Bs + 2 * j * (BN * 16), BN * 16, 128));
+    wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // the window sum, while they run
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          As + (2 * i + half) * (BM * 16) + r * 16);
+      rs = __dp4a((int)v.x, 0x01010101, rs);
+      rs = __dp4a((int)v.y, 0x01010101, rs);
+      rs = __dp4a((int)v.z, 0x01010101, rs);
+      rs = __dp4a((int)v.w, 0x01010101, rs);
+    }
+    wgmma_wait0();
+    pin(acc);
+  }
+  cp_wait<0>();
+  rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+  if (half == 0) rowsum[r] = rs;
+  __syncthreads();   // rowsum, out_off visible; the ring is free
+
+  // thread (warp w4 of warpgroup wg, lane g, t) holds rows rb and rb + 8,
+  // columns 8 j + 2 t (+ 1) of each n8 tile j
+  const int g = lane >> 2, t = lane & 3;
+  const int rb = wg * 64 + (warp & 3) * 16 + g;
+  if (a.raw_acc != nullptr) {   // debug entry: the raw sums
+    const int S = (int)a.S, cout = (int)a.cout;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rb + 8 * (e >> 1);
+        const int n = n0 + 8 * j + 2 * t + (e & 1);
+        const long long m = m0 + row;
+        if (m < M) {
+          a.raw_acc[(m * S + s) * cout + n] = acc[4 * j + e];
+          if (n == 0) a.raw_win[m * S + s] = rowsum[row];
+        }
+      }
+    }
+    return;
+  }
+  const Epi p = load_epi(a, K);
+  int8_t* Os = smem;
+  const int ws0 = rowsum[rb], ws1 = rowsum[rb + 8];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float b0 = p.has_bias ? __ldg(a.bias + n0 + col) : 0.0f;
+    const float b1 = p.has_bias ? __ldg(a.bias + n0 + col + 1) : 0.0f;
+    const uint32_t c0 = (uint8_t)epi_code(p, acc[4 * j], ws0, b0);
+    const uint32_t c1 = (uint8_t)epi_code(p, acc[4 * j + 1], ws0, b1);
+    const uint32_t c2 = (uint8_t)epi_code(p, acc[4 * j + 2], ws1, b0);
+    const uint32_t c3 = (uint8_t)epi_code(p, acc[4 * j + 3], ws1, b1);
+    *reinterpret_cast<uint16_t*>(Os + rb * OP + col) =
+        (uint16_t)(c0 | (c1 << 8));
+    *reinterpret_cast<uint16_t*>(Os + (rb + 8) * OP + col) =
+        (uint16_t)(c2 | (c3 << 8));
+  }
+  __syncthreads();
+
+  const bool has_res = a.res != nullptr;
+  const Res rp = load_res(a);
+  if (a.vo >= 16) {   // out, res and every output stride 16-byte aligned
+    constexpr int PR = BN / 16;   // pieces a pixel
+    for (int idx = tid; idx < BM * PR; idx += kThreads) {
+      const int row = idx / PR, q = idx - row * PR;
+      const long long off = out_off[row];
+      if (off < 0) continue;
+      const long long o = off + n0 + 16 * q;
+      uint4 v = *reinterpret_cast<const uint4*>(Os + row * OP + 16 * q);
+      if (has_res) {
+        const uint4 rv = __ldg(reinterpret_cast<const uint4*>(a.res + o));
+        v.x = res_word(rp, v.x, rv.x, p.lo, p.hi);
+        v.y = res_word(rp, v.y, rv.y, p.lo, p.hi);
+        v.z = res_word(rp, v.z, rv.z, p.lo, p.hi);
+        v.w = res_word(rp, v.w, rv.w, p.lo, p.hi);
+      }
+      *reinterpret_cast<uint4*>(a.out + o) = v;
+    }
+  } else {
+    for (int idx = tid; idx < BM * BN; idx += kThreads) {
+      const int row = idx / BN, nl = idx - row * BN;
+      const long long off = out_off[row];
+      if (off < 0) continue;
+      const long long o = off + n0 + nl;
+      int8_t c = Os[row * OP + nl];
+      if (has_res) c = res_code(rp, c, a.res[o], p.lo, p.hi);
+      a.out[o] = c;
+    }
+  }
+}
+
 template <int NT>
 int launch(const QbnConvArgs& a, long long m_tiles, cudaStream_t stream) {
   constexpr int BN = 8 * NT;
@@ -1168,6 +1555,31 @@ int launch_pixel(const QbnConvArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int BN, bool WS>
+int launch_wide(const QbnConvArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      int_conv_kernel_wide<BN, WS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long K = a.kh * a.kw * a.cin;
+  const long long tiles =
+      (a.B * a.Ho * a.Wo + kBM - 1) / kBM * (a.cout / BN) * a.sg;
+  if (a.bm != kBM || a.cout % BN != 0 || a.cin % 16 != 0 ||
+      a.ring != wide_ring<BN>() || a.kc != kWideBK || a.wt == nullptr ||
+      a.koff == nullptr || a.sg < 1 || tiles > 2147483647LL ||
+      a.S > 65535 || a.smem > 232448)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 tgrid((unsigned)((K + 63) / 64), (unsigned)(a.cout / 64),
+                   WS ? 1u : (unsigned)a.S);
+  int_conv_kernel_wide_wt<<<tgrid, kThreads, 0, stream>>>(a.w, a.wt, (int)K,
+                                                         (int)a.cout);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)tiles, (unsigned)((a.S + a.sg - 1) / a.sg));
+  int_conv_kernel_wide<BN, WS><<<grid, kThreads, (size_t)a.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -1183,6 +1595,14 @@ extern "C" int qbn_int_conv(const QbnConvArgs* a, void* stream) {
                                   : launch_pixel<6, false>(*a, st);
     if (a->nt == 12) return shared ? launch_pixel<12, true>(*a, st)
                                    : launch_pixel<12, false>(*a, st);
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  if (a->wide) {   // 128 or 64 channels a CTA, per-sample or shared w
+    const bool ws = a->w_ss == 0;
+    if (a->nt == 16) return ws ? launch_wide<128, true>(*a, st)
+                               : launch_wide<128, false>(*a, st);
+    if (a->nt == 8) return ws ? launch_wide<64, true>(*a, st)
+                              : launch_wide<64, false>(*a, st);
     return (int)cudaErrorInvalidConfiguration;
   }
   if (a->halo) {   // the (nt, mt, wn) the plan may choose

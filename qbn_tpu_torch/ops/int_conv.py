@@ -25,7 +25,7 @@ raises; there is no fallback. The kernel addresses activations and outputs by
 (batch, row, column, sample) strides and weights by a sample stride: K *
 cout for per-sample weights (Bayes-by-backprop), 0 for one set shared by
 every sample (`int_conv`: MC-Dropout, pointwise, an ensemble member; or
-4-D weights given to `int_conv_merged`). The kernel has three bodies,
+4-D weights given to `int_conv_merged`). The kernel has four bodies,
 chosen by shape in `plan_conv`, never on failure: "halo" for the 3x3
 convs with cin % 4 == 0 (the
 activations of a tile of output pixels staged once in shared memory with
@@ -34,11 +34,15 @@ the shared-input stem with K <= 32 and the 1x1 convs with padding 0 (a CTA
 owns a tile of output pixels and walks over the samples in groups: the
 stem's im2col tile gathered once, a 1x1 conv's input runs copied once per
 group, the group's weights transposed into shared memory, the codes
-staged so that each pixel's run is written in long pieces) and "im2col"
-for the rest (an im2col tile gathered per K step, one sample per CTA).
-The plan, with the halo body's k -> offset and pixel -> offset tables, is
-computed here and passed to the kernel, so the CPU tests check what the
-kernel reads. On a
+staged so that each pixel's run is written in long pieces), "wide" for
+the 1x1 and 3x3 convs that those two decline whose input channels are a
+multiple of 16 and output channels of 64 (a pipelined implicit GEMM on
+wgmma, 128 pixels x 128 channels a CTA, K through a ring of cp.async
+stages) and "im2col" for the rest (an
+im2col tile gathered per K step, one sample per CTA). The plan, with the
+halo body's k -> offset and pixel -> offset tables and the wide body's
+table of taps, is computed here and passed to the kernel, so the CPU tests
+check what the kernel reads. On a
 CPU tensor they run the plain versions beside them, whose integer sums
 come from library convolutions in float64, which holds them
 exactly (for some float32 3x3 shapes cuDNN picks an algorithm that is not
@@ -66,10 +70,10 @@ _MAX_K = (1 << 31) // (128 * 128) - 1            # int32 sums stay exact
 # chip_smoke.py reads them to show that the main path went through the
 # kernel.
 launches = 0
-launches_by_design = {"halo": 0, "pixel": 0, "im2col": 0}
+launches_by_design = {"halo": 0, "pixel": 0, "im2col": 0, "wide": 0}
 # of those, the launches with one set of weights shared by every sample
 # (MC-Dropout, pointwise and ensemble members), by design
-launches_shared_w = {"halo": 0, "pixel": 0, "im2col": 0}
+launches_shared_w = {"halo": 0, "pixel": 0, "im2col": 0, "wide": 0}
 # of those, the launches that ran the residual epilogue (a residual add in
 # the conv's launch)
 launches_residual = 0
@@ -253,6 +257,11 @@ _KSTEP = 32                   # contraction step: one m16n8k32
 _LAYOUTS = {3: (2, 1), 6: (2, 1), 12: (2, 2)}
 _IM2COL_BM = 128
 _PIXEL_BM = 128
+_WIDE_BM = 128
+_WIDE_BK = 128                # K bytes of a ring stage of the wide body
+# its ring stages by channels a CTA (csrc/int_conv.cu wide_ring): two CTAs
+# fit on an SM either way
+_WIDE_RING = {128: 3, 64: 4}
 _MAX_GROUP = 32               # samples per group of the pixel body
 # the pixel body's CTAs per SM, by n8 tiles: four at 3 and 6, three at 12
 # (as many as its registers allow; csrc/int_conv.cu pixel_min_blocks gives
@@ -290,6 +299,13 @@ class ConvPlan:
     weights go to shared memory transposed, [sample][n][kc + 16], zero
     past K (kc = K rounded up to 32), and its codes to a staging buffer
     [pixel][sample][bn] before the CTA writes them.
+    design "wide": a CTA owns one sample, bm = 128 output pixels and bn =
+    128 channels (64 where cout is 64); K runs in stages of kc = 128 bytes
+    through a ring of `ring` stages. The A piece of output pixel r at
+    contraction bytes 16q .. 16q + 15 is 16 bytes of the input at tap (dh,
+    dw), channel ci of the pixel's window, with koff[q] = dh << 24 | dw <<
+    20 | ci (-1 past K, read as zeros); a piece never crosses a tap since
+    cin % 16 == 0.
     design "im2col": the first body, 128 pixels x 8 * nt channels per CTA,
     an im2col tile gathered from global memory per K step."""
     design: str
@@ -429,6 +445,68 @@ def _pixel_plan(cin, cout, k, shared_x, shared_w, x_align, w_align,
     return None
 
 
+def _wide_taps(k, cin, kw):
+    """The wide body's table: for each 16-byte piece q of K (tap-major,
+    then channel, as the weights are laid out), padded to whole stages,
+    dh << 24 | dw << 20 | ci of its first byte; -1 past K."""
+    out = []
+    for q in range(-(-k // _WIDE_BK) * _WIDE_BK // 16):
+        if 16 * q < k:
+            tap, ci = divmod(16 * q, cin)
+            dh, dw = divmod(tap, kw)
+            out.append(dh << 24 | dw << 20 | ci)
+        else:
+            out.append(-1)
+    return out
+
+
+def wide_smem(bn, ring, k):
+    """Shared memory of the wide body: the ring (ring stages of 128 pixels
+    and bn channels x 128 K bytes; the staged codes reuse it), the rows'
+    window sums and output offsets, and the table of taps."""
+    return (ring * (_WIDE_BM + bn) * _WIDE_BK + 12 * _WIDE_BM
+            + 4 * 8 * -(-k // _WIDE_BK))
+
+
+# the weights a group of the wide body's samples keeps in L2 (of 50 MB)
+_WIDE_GROUP_BYTES = 16 << 20
+
+
+def wide_sample_group(plan: ConvPlan, samples: int, cout: int) -> int:
+    """Samples a group of the wide body runs together: as many as keep
+    their weight slices (K x cout each, K rounded up to a stage) within
+    _WIDE_GROUP_BYTES, in groups of balanced size. More samples a group
+    lengthen the runs of each pixel's codes read together; fewer keep the
+    weights in L2."""
+    most = max(1, min(samples, _WIDE_GROUP_BYTES // (16 * len(plan.koff)
+                                                      * cout)))
+    groups = -(-samples // most)
+    return -(-samples // groups)
+
+
+def _wide_plan(cin, cout, kh, kw, stride, pad, shared_x, x_align, w_align):
+    """(the wide body's plan, "") or (None, why it cannot run the shape)."""
+    if shared_x:
+        return None, "the input is shared by every sample"
+    if (kh, kw, pad) not in ((1, 1, 0), (3, 3, 1)) or stride not in (1, 2):
+        return None, (f"a {kh}x{kw} kernel, padding {pad}, stride {stride} "
+                      "is not 1x1 or 3x3 at stride 1 or 2")
+    if cin % 16:
+        return None, f"cin {cin} is not a multiple of 16"
+    if cout % 64:
+        return None, f"{cout} output channels are not a multiple of 64"
+    if x_align < 16 or w_align < 16:
+        return None, "the input or weights are not in 16-byte pieces"
+    k = kh * kw * cin
+    bn = 128 if cout % 128 == 0 else 64
+    ring = _WIDE_RING[bn]
+    return ConvPlan(
+        "wide", f"{kh}x{kw}/{stride}, cin % 16 == 0, cout % 64 == 0",
+        bm=_WIDE_BM, nt=bn // 8, kc=_WIDE_BK, ring=ring,
+        smem_bytes=wide_smem(bn, ring, k),
+        koff=tuple(_wide_taps(k, cin, kw))), ""
+
+
 @functools.lru_cache(maxsize=None)
 def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
               x_align=16, w_align=16, shared_w=False):
@@ -436,31 +514,42 @@ def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
     channels cout, a kh x kw kernel). x_align / w_align: the largest of 16,
     8, 4, 2, 1 dividing the activations' base address and every element
     stride, and the weights' base address. shared_x / shared_w: one input,
-    or one set of weights, for every sample (a sample stride of 0)."""
+    or one set of weights, for every sample (a sample stride of 0).
+    Where the halo and pixel bodies decline a shape, the wide body takes
+    it if it can, else the im2col body; the reason names why both
+    declined."""
     ho = (h + 2 * pad - kh) // stride + 1
     wo = (w + 2 * pad - kw) // stride + 1
     k = kh * kw * cin
     bn = min(cout, 96)
-    im2col = functools.partial(ConvPlan, "im2col", bm=_IM2COL_BM,
-                               nt=_im2col_nt(cout))
+
+    def declined(reason):   # the halo and pixel bodies cannot run it
+        wide, why = _wide_plan(cin, cout, kh, kw, stride, pad, shared_x,
+                               x_align, w_align)
+        if wide is not None:
+            return dataclasses.replace(wide,
+                                       reason=f"{reason}; {wide.reason}")
+        return ConvPlan("im2col", f"{reason}; wide: {why}", bm=_IM2COL_BM,
+                        nt=_im2col_nt(cout))
+
     if shared_x:
         if k > _KSTEP:
-            return im2col(reason="shared input with K > 32")
+            return declined("shared input with K > 32")
         return _pixel_plan(cin, cout, k, True, shared_w, x_align, w_align,
-                           "shared input, K <= 32 (the stem)") or im2col(
-            reason=f"shared input, {cout} output channels")
+                           "shared input, K <= 32 (the stem)") or declined(
+            f"shared input, {cout} output channels")
     if (kh, kw, pad) == (1, 1, 0):
         return _pixel_plan(cin, cout, k, False, shared_w, x_align, w_align,
-                           "1x1, padding 0") or im2col(
-            reason=f"1x1 with cin {cin}, {cout} output channels")
+                           "1x1, padding 0") or declined(
+            f"1x1 with cin {cin}, {cout} output channels")
     if (kh, kw, pad) != (3, 3, 1) or stride not in (1, 2):
-        return im2col(reason="not a 3x3 conv with padding 1")
+        return declined("not a 3x3 conv with padding 1")
     if cin % 4 or x_align < 4:
-        return im2col(reason="input rows not in 4-byte words")
+        return declined("input rows not in 4-byte words")
     if cout % bn or bn % 8 or bn // 8 not in _LAYOUTS:
-        return im2col(reason=f"{cout} output channels")
+        return declined(f"{cout} output channels")
     if (k * cout) % 16 or w_align < 16 or (bn < cout and cout % 16):
-        return im2col(reason="weight rows not in 16-byte pieces")
+        return declined("weight rows not in 16-byte pieces")
     mt, wn = _LAYOUTS[bn // 8]
     bm = 8 // wn * 16 * mt
     if ho * wo >= bm and bm % wo == 0 and ho % (bm // wo) == 0:
@@ -468,7 +557,7 @@ def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
     elif ho * wo < bm and bm % (ho * wo) == 0:
         n_img, rows = bm // (ho * wo), ho  # whole images
     else:
-        return im2col(reason=f"no tile of whole rows or images of {bm}")
+        return declined(f"no tile of whole rows or images of {bm}")
     h_in, w_in = (rows - 1) * stride + 3, (wo - 1) * stride + 3
     best = None
     for pitch in range(cin, cin + 32, 4):
@@ -491,7 +580,7 @@ def plan_conv(h, w, cin, cout, kh, kw, stride, pad, shared_x=False,
                     h_in=h_in, w_in=w_in, pitch=pitch, vx=vx, kc=kc,
                     ring=ring, halo_bytes=halo, smem_bytes=smem,
                     koff=tuple(koff), pixoff=tuple(pixoff))
-    return im2col(reason="no tile fits in shared memory")
+    return declined("no tile fits in shared memory")
 
 
 def sample_groups(plan: ConvPlan, samples: int, tiles: int, sms: int):
@@ -516,13 +605,18 @@ def launch_grid(plan: ConvPlan, m: int, samples: int, cout: int,
     sample (B * H' * W') and `samples` samples, as csrc/int_conv.cu
     computes it: (samples, pixel tiles, channel tiles) on the halo and
     im2col bodies, (pixel tiles, channel tiles, sample splits) on the pixel
-    body. Raises ValueError where a dimension passes CUDA's limits: the
-    samples ride the grid's x (or a loop of the pixel body), so that S
-    samples of B images never need more pixel tiles than B images do."""
+    body, (pixel tiles x channel tiles x group samples, sample groups, 1)
+    on the wide body. Raises ValueError where a dimension passes CUDA's
+    limits: the samples ride the grid's x (or a loop of the pixel body, or
+    the wide body's y), so that S samples of B images never need more
+    pixel tiles than B images do."""
     m_tiles, n_tiles = -(-m // plan.bm), -(-cout // plan.bn)
     if plan.design == "pixel":
         _sg, s_cta = sample_groups(plan, samples, m_tiles * n_tiles, sms)
         grid = (m_tiles, n_tiles, -(-samples // s_cta))
+    elif plan.design == "wide":   # sample groups slowest
+        sg = wide_sample_group(plan, samples, cout)
+        grid = (m_tiles * n_tiles * sg, -(-samples // sg), 1)
     else:
         grid = (samples, m_tiles, n_tiles)
     for n, limit, what in zip(grid, _GRID_LIMITS, "xyz"):
@@ -568,11 +662,11 @@ _FIELDS = (
     "relu", "res_relu", "a_lo", "a_hi", "raw_acc", "raw_win",
     "vec_x", "vec_out", "koff", "pixoff", "halo", "bm", "nt", "mt", "wn",
     "n_img", "rows", "h_in", "w_in", "pitch", "vx", "kc", "ring", "smem",
-    "pixel", "sg", "s_cta", "vo")
+    "pixel", "sg", "s_cta", "vo", "wide", "wt")
 _PTRS = frozenset((
     "x", "w", "out", "res", "bias", "x_scale", "w_scale", "w_zp",
     "out_scale", "out_zp", "res_scale", "res_out_scale", "res_out_zp",
-    "raw_acc", "raw_win", "koff", "pixoff"))
+    "raw_acc", "raw_win", "koff", "pixoff", "wt"))
 
 
 class _Args(ctypes.Structure):
@@ -611,7 +705,8 @@ def conv_args(x, x_strides, x_shape, w, samples, stride, pad, out_shape,
     (Ho, Wo); raw: (acc, winsum) int32 buffers for the debug entry.
     design: None takes the plan's; "im2col" forces the im2col body on any
     shape (for comparing the designs; nothing on the main path passes
-    it)."""
+    it). The wide body's transposed weights (`wt`) are the caller's to
+    allocate."""
     b, h, wd, cin = x_shape
     kh, kw, _cin, cout = w.shape[-4:]
     ho, wo = out_shape
@@ -652,6 +747,7 @@ def conv_args(x, x_strides, x_shape, w, samples, stride, pad, out_shape,
         a_hi=int(a_hi), raw_acc=_ptr(raw[0]) if raw else None,
         raw_win=_ptr(raw[1]) if raw else None, vec_x=int(vec_x),
         vec_out=int(vec_out), halo=int(plan.design == "halo"), bm=plan.bm,
+        wide=int(plan.design == "wide"),
         nt=plan.nt, mt=plan.mt, wn=plan.wn, n_img=plan.n_img, rows=plan.rows,
         h_in=plan.h_in, w_in=plan.w_in, pitch=plan.pitch, vx=plan.vx,
         kc=plan.kc, ring=plan.ring, smem=plan.smem_bytes,
@@ -664,10 +760,14 @@ def conv_args(x, x_strides, x_shape, w, samples, stride, pad, out_shape,
         # address and strides set the width of the stores
         args.vo = _align(out.data_ptr() if out is not None else 0,
                          (*out_strides, plan.bn))
-    if plan.design == "halo":
+    if plan.design in ("halo", "wide"):
         table = _tables(plan, x.device)
         args.koff = table.data_ptr()
         args.pixoff = table.data_ptr() + 4 * len(plan.koff)
+    if plan.design == "wide":   # 16-byte stores where every address allows
+        args.vo = min(_align(_ptr(out) or 0, out_strides),
+                      _align(_ptr(residual) or 0, ()))
+        args.sg = wide_sample_group(plan, samples, cout)
     return args, plan
 
 
@@ -677,6 +777,10 @@ def _launch(x, *shape_args, **kwargs):
     global launches, launches_residual
     args, plan = conv_args(x, *shape_args, sms=_sm_count(x.device),
                            **kwargs)
+    if plan.design == "wide":   # the weights' K-major copy, written first
+        wt = torch.empty(shape_args[2].numel(), dtype=torch.int8,
+                         device=x.device)
+        args.wt = wt.data_ptr()
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

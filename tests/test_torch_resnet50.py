@@ -418,7 +418,8 @@ def test_the_resnet18_and_lenet_shapes_keep_their_plan(key, want):
 
 def test_every_resnet50_conv_takes_the_im2col_body():
     """At B=256, S=20 in the merged layout: the stem (shared input, K =
-    147), the 1x1 convs and 3x3 convs of 64..2048 channels."""
+    147) on the im2col body, the 52 1x1 and 3x3 convs of 64..2048
+    channels, which the halo and pixel bodies decline, on the wide body."""
     model = factory.build_model(Config(model="conv_resnet50_bbb",
                                        output_size=1000))
     assert sum(isinstance(m, TL.ConvBlock) for m in model.modules()) == 53
@@ -436,12 +437,16 @@ def test_every_resnet50_conv_takes_the_im2col_body():
                 shapes.append((hw, cin, 4 * planes, 1, st, 0, False))
             cin, hw = 4 * planes, ho
     assert len(shapes) == 53
+    designs = []
     for h, ci, co, k, st, pad, shared in shapes:
         c = ci if shared else 20 * ci
         strides = (h * h * c, h * c, c, 0 if shared else ci)
         plan = ic.plan_conv(h, h, ci, co, k, k, st, pad, shared,
                             ic._align(0, strides), 16)
-        assert plan.design == "im2col", (h, ci, co, k, plan.reason)
+        designs.append(plan.design)
+        want = "im2col" if shared else "wide"
+        assert plan.design == want, (h, ci, co, k, plan.reason)
+    assert designs.count("wide") == 52 and designs[0] == "im2col"
 
 
 def test_sixteen_epilogues_and_the_max_pool_span_a_forward(monkeypatch):
