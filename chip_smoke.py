@@ -274,8 +274,7 @@ from qbn_tpu_torch.config import Config
 from qbn_tpu_torch.convert import to_device
 from qbn_tpu_torch.evaluation.ensemble import stack_variables
 from qbn_tpu_torch.evaluation.mc import (
-    aggregate, draw_sampled_weights, evaluate, mc_predict, plan_layers,
-    presample_plan, sampled_tree)
+    PosteriorDraw, aggregate, evaluate, mc_predict, presample_plan)
 from qbn_tpu_torch.flows import fit
 from qbn_tpu_torch.models import layers as model_layers
 from qbn_tpu_torch.models.architectures import CUTS, BasicBlock
@@ -437,7 +436,7 @@ def _cpu_layers(layers):
             for (w, s, qp, lo, hi) in layers]
 
 
-def phase_kernel(state, plan, samples, seed, dev):
+def phase_kernel(state, samples, seed, dev):
     """Kernel against plain: returns the largest code difference seen."""
     # the eps_q table, built on the card by the first seeded draw there
     # (its set-up), twice: bitwise the CPU's
@@ -453,8 +452,8 @@ def phase_kernel(state, plan, samples, seed, dev):
           "the card's eps_q table differs from the CPU's")
     print("eps_q table: the card's == the CPU's, bitwise")
     g = torch.Generator(device=dev).manual_seed(seed)
-    layers = plan_layers(state, plan)
-    pack = sw.pack_layers(layers, samples)
+    pack = PosteriorDraw(state, samples)
+    layers = pack.inputs(state)
     noise = [torch.randn((samples,) + tuple(w.shape), generator=g,
                          device=dev) for (w, *_r) in layers]
     got = sw.draw_layers(pack, noise=noise)
@@ -515,7 +514,7 @@ def phase_kernel(state, plan, samples, seed, dev):
                                             generator=g2, device=dev)
                                 for (w, *_r) in layers])
     worst = 0.0
-    for (path, _lo, _hi), a, b in zip(plan, got_p, ref_p):
+    for (path, _lo, _hi), a, b in zip(pack.plan, got_p, ref_p):
         ha = torch.bincount(a.reshape(-1).to(torch.int64) + 128,
                             minlength=256).double()
         hb = torch.bincount(b.reshape(-1).to(torch.int64) + 128,
@@ -859,7 +858,7 @@ def eager_adds():
         BasicBlock.forward = real
 
 
-def phase_main(seed, state, model, plan, dev):
+def phase_main(seed, state, model, dev):
     """`evaluate` on BATCHES batches, then the kernel path against the
     plain path and the card against the CPU; returns the draw kernel's
     and the conv kernel's launches during `evaluate`, the latter in all
@@ -924,13 +923,14 @@ def phase_main(seed, state, model, plan, dev):
     # convs): identical codes at every cut. Each conv of a kernel-path
     # forward is recorded and held against the plain conv on its inputs.
     g = torch.Generator(device=dev).manual_seed(seed + 7)
-    layers = plan_layers(state, plan)
+    draw = PosteriorDraw(state, SAMPLES)
+    layers = draw.inputs(state)
     noise = [torch.randn((SAMPLES,) + tuple(w.shape), generator=g,
                          device=dev) for (w, *_r) in layers]
     x = torch.as_tensor(data[0][0], device=dev)
     with torch.no_grad():
-        k_tree = draw_sampled_weights(state, plan, SAMPLES, noise=noise)
-        p_tree = sampled_tree(plan, plain_draw(layers, noise))
+        k_tree = draw(noise=noise)
+        p_tree = draw.tree(plain_draw(layers, noise))
         calls = []
 
         def record(real, *args, **kwargs):
@@ -980,7 +980,7 @@ def phase_main(seed, state, model, plan, dev):
             print(f"kernel path == plain path == eager adds at cut "
                   f"{cut or 'probs'} ({n_res} residual epilogues)")
             del a, b, c
-        del k_tree, p_tree
+        del k_tree, p_tree, draw
         torch.cuda.empty_cache()
 
         # the card against the CPU path (held against qbn_tpu by the
@@ -990,9 +990,9 @@ def phase_main(seed, state, model, plan, dev):
         state_cpu = to_device(state, cpu)
         noise_s = [torch.randn((s_small,) + tuple(w.shape), generator=g,
                                device=dev) for (w, *_r) in layers]
-        t_gpu = draw_sampled_weights(state, plan, s_small, noise=noise_s)
-        t_cpu = draw_sampled_weights(state_cpu, plan, s_small,
-                                     noise=[n.cpu() for n in noise_s])
+        t_gpu = PosteriorDraw(state, s_small)(noise=noise_s)
+        t_cpu = PosteriorDraw(state_cpu, s_small)(
+            noise=[n.cpu() for n in noise_s])
         xs = x[:4]
         for cut in CUTS + (None,):
             a = mc_predict(model, state, xs, samples=s_small,
@@ -1057,7 +1057,7 @@ def _add_conv_counts(counts):
         counts["conv_by_design"][k] += v
 
 
-def method_states(state, plan, seed, dev):
+def method_states(state, seed, dev):
     """INT states of the deterministic ResNet-18 at the flagship's widths,
     made from --seed (no committed checkpoint carries one for these
     methods): each member's weights are a posterior draw of the flagship
@@ -1067,7 +1067,7 @@ def method_states(state, plan, seed, dev):
     site's multiply grid is the grid of the layer it follows. Returns
     (MC-Dropout state, pointwise state, the MEMBERS members stacked)."""
     g = torch.Generator(device=dev).manual_seed(seed + 61)
-    sampled = draw_sampled_weights(state, plan, MEMBERS, g)
+    sampled = PosteriorDraw(state, MEMBERS)(g)
     rng = np.random.default_rng(seed + 62)
 
     def jitter(v):
@@ -1121,7 +1121,7 @@ def _same_outputs(a, b, what):
         _codes_err(a.codes.cpu(), b.codes.cpu(), what)
 
 
-def phase_methods(seed, state, plan, dev):
+def phase_methods(seed, state, dev):
     """The new paths through `evaluate` at B=256, each with every count set
     to 0 just before it and read just after (20 conv launches a forward,
     all with shared weights, on the bodies of SHARED_BY_DESIGN; no draw);
@@ -1130,7 +1130,7 @@ def phase_methods(seed, state, plan, dev):
     method at B=8, kernel path against plain path and card against CPU,
     at every cut. Returns ({run: conv launches}, {method: steady ms per
     batch}, the largest code difference, the states)."""
-    mc, pw, ens = method_states(state, plan, seed, dev)
+    mc, pw, ens = method_states(state, seed, dev)
     models = {m: build_model(Config(model=name, q=True, p=MC_P))
               for m, name in METHOD_MODELS.items()}
     rng = np.random.default_rng(seed + 63)
@@ -1369,13 +1369,13 @@ def draw_sass_mix():
           f"truth table {lop3}")
 
 
-def phase_times(state, plan, samples, seed):
+def phase_times(state, samples, seed):
     """The draw kernel and its plain version at the flagship shapes, in
     turns, and the kernel's bound; returns (ms, plain_ms, bound_ms,
     bound_by)."""
     dev = torch.device("cuda")
-    layers = plan_layers(state, plan)
-    pack = sw.pack_layers(layers, samples)
+    pack = PosteriorDraw(state, samples)
+    layers = pack.inputs(state)
     gen = torch.Generator().manual_seed(seed)
     sd, off = sw.key_from_generator(
         torch.Generator().manual_seed(seed + 9)).tolist()
@@ -1930,15 +1930,15 @@ def phase_resnet50(seed, dev):
           f"{float(probs[-1].max(-1).values.mean()):.4f}")
     del probs, data
 
-    layers = plan_layers(state, plan)
+    draw = PosteriorDraw(state, SMALL_SAMPLES)
+    layers = draw.inputs(state)
     g = torch.Generator(device=dev).manual_seed(seed + 65)
     noise = [torch.randn((SMALL_SAMPLES,) + tuple(w.shape), generator=g,
                          device=dev) for (w, *_r) in layers]
     x = torch.rand((SMALL_BATCH,) + R50_INPUT, generator=g, device=dev)
     with torch.no_grad():
-        k_tree = draw_sampled_weights(state, plan, SMALL_SAMPLES,
-                                      noise=noise)
-        p_tree = sampled_tree(plan, plain_draw(layers, noise))
+        k_tree = draw(noise=noise)
+        p_tree = draw.tree(plain_draw(layers, noise))
         profiling.start()
         try:
             mc_predict(model, state, x, samples=SMALL_SAMPLES,
@@ -3393,8 +3393,8 @@ def _draw_at_model(state, samples, seed, dev, what):
     bitwise against the plain version with explicit noise (plain_draw)
     and seeded (plain_seeded, the same seed and offset). Returns the
     largest code difference (0, or raises)."""
-    layers = plan_layers(state, presample_plan(state))
-    pack = sw.pack_layers(layers, samples)
+    pack = PosteriorDraw(state, samples)
+    layers = pack.inputs(state)
     g = torch.Generator(device=dev).manual_seed(seed)
     noise = [torch.randn((samples,) + tuple(w.shape), generator=g,
                          device=dev) for (w, *_r) in layers]
@@ -4148,8 +4148,8 @@ def phase_serving(seed, dev):
     from qbn_tpu_torch.serving import export_predictor, load_predictor
     from qbn_tpu_torch.serving.export import DRAW_STREAM, seed_key
     cfg, model, state = load_trained(EXP, device=dev)
-    plan = presample_plan(state)
     s = SERVE_SAMPLES
+    draw = PosteriorDraw(state, s)
     rng = np.random.default_rng(seed + 101)
     requests = {b: [(torch.as_tensor(rng.random((b, 32, 32, 3),
                                                 dtype=np.float32),
@@ -4162,11 +4162,10 @@ def phase_serving(seed, dev):
     def live(x, sampled):
         with torch.no_grad(), full_float32():
             return aggregate(mc_predict(model, state, x, samples=s,
-                                        plan=plan, presampled=sampled))
+                                        draw=draw, presampled=sampled))
 
     with torch.no_grad():
-        bank = draw_sampled_weights(state, plan, s, key=seed_key(
-            seed + SERVE_FREEZE, DRAW_STREAM).to(dev))
+        bank = draw(key=seed_key(seed + SERVE_FREEZE, DRAW_STREAM).to(dev))
     answers = {}
     with tempfile.TemporaryDirectory() as tmp:
         for frozen in (True, False):
@@ -4202,10 +4201,8 @@ def phase_serving(seed, dev):
                     _add_conv_counts(counts)
                     for (x, sd), a in zip(reqs, got):
                         with torch.no_grad():
-                            sampled = bank if frozen else \
-                                draw_sampled_weights(
-                                    state, plan, s,
-                                    key=seed_key(sd, DRAW_STREAM).to(dev))
+                            sampled = bank if frozen else draw(
+                                key=seed_key(sd, DRAW_STREAM).to(dev))
                         check(a.shape == (b, 10) and torch.equal(
                             a, live(x, sampled)),
                             f"serving {name}: an answer differs from the "
@@ -4275,11 +4272,11 @@ def phase_serving(seed, dev):
     # against the plain path (plain draw, plain convs). These launches
     # are comparisons and are not counted.
     t0 = time.perf_counter()
-    layers = plan_layers(state, plan)
+    layers = draw.inputs(state)
     (x, sd), served = requests[1][0], answers["seeded B=1"][0]
     key = seed_key(sd, DRAW_STREAM)
     with torch.no_grad():
-        k_codes = sw.draw_layers(sw.pack_layers(layers, s), key=key.to(dev))
+        k_codes = sw.draw_layers(draw, key=key.to(dev))
         p_codes = plain_seeded(layers, s, *key.tolist(), dev)
         _max_code_diff(k_codes, p_codes, "serving B=1, seeded draw")
         calls = []
@@ -4290,7 +4287,7 @@ def phase_serving(seed, dev):
             return out
 
         with conv_route(record):
-            live(x, sampled_tree(plan, k_codes))
+            live(x, draw.tree(k_codes))
         check(len(calls) == CONVS_PER_BATCH,
               f"serving B=1: {len(calls)} convs recorded")
         for i, (args, kwargs, out) in enumerate(calls):
@@ -4299,7 +4296,7 @@ def phase_serving(seed, dev):
         del calls
         with conv_route(lambda _real, *args, **kw:
                         ic.int_conv_merged_plain(*args, **kw)):
-            plain = live(x, sampled_tree(plan, p_codes))
+            plain = live(x, draw.tree(p_codes))
         check(torch.equal(served, plain),
               "serving B=1: the served answer != the plain path's")
     print(f"serving B=1: the seeded draw == plain (torch Philox + inverse "
@@ -4316,7 +4313,7 @@ def phase_serving(seed, dev):
 DISPATCH_BATCHES, DISPATCH_TURNS, DISPATCH_CALLS = 3, 4, 2000
 
 
-def phase_dispatch(seed, state, model, plan, dev):
+def phase_dispatch(seed, state, model, dev):
     """What the operators' dispatch adds: a BBB batch (S=100, B=256;
     one draw and 20 conv operator calls) through the operators, and with
     the operators replaced by their CUDA implementations called directly,
@@ -4328,13 +4325,14 @@ def phase_dispatch(seed, state, model, plan, dev):
     x = torch.as_tensor(rng.random((BATCH, 32, 32, 3), dtype=np.float32),
                         device=dev)
     gen = torch.Generator().manual_seed(seed)
+    draw = PosteriorDraw(state, SAMPLES)
 
     def batches():
         t0 = time.perf_counter()
         with torch.no_grad():
             for _ in range(DISPATCH_BATCHES):
                 aggregate(mc_predict(model, state, x, samples=SAMPLES,
-                                     plan=plan, generator=gen))
+                                     draw=draw, generator=gen))
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / DISPATCH_BATCHES
 
@@ -4581,7 +4579,7 @@ def _timed_steps(step, state, x, y, noise, n, dev):
     return start.elapsed_time(end) / n
 
 
-def _share_ms(model, state, plan, rmodel, rstate, xt, seed, dev):
+def _share_ms(model, state, rmodel, rstate, xt, seed, dev):
     """ms of one rank's share of a seeded sample-sharded evaluation at
     world PAR_WORLD (the first share, one process on the card), as the
     sharded evaluation computes it (`local_outputs`: the draws of all S
@@ -4590,28 +4588,30 @@ def _share_ms(model, state, plan, rmodel, rstate, xt, seed, dev):
     INT8 evaluation, MC-Dropout's (full width, a state from the seed) at
     S=SAMPLES, and the float BBB ResNet-18's at S=PAR_FLOAT_SAMPLES."""
     from qbn_tpu_torch.parallel.sharded import local_outputs
-    mc, _pw, _ens = method_states(state, plan, seed, dev)
+    mc, _pw, _ens = method_states(state, seed, dev)
     mc_model = build_model(Config(model=METHOD_MODELS["mcdropout"], q=True,
                                   p=MC_P))
     fstate = {"params": tree_map(torch.Tensor.detach, rstate.params),
               **rstate.model_state}
     out = {}
-    for what, m, st, s, mode, p in (
-            ("BBB INT", model, state, SAMPLES, "int", plan),
-            ("MC-Dropout INT", mc_model, mc, SAMPLES, "int", None),
+    for what, m, st, s, mode, bbb in (
+            ("BBB INT", model, state, SAMPLES, "int", True),
+            ("MC-Dropout INT", mc_model, mc, SAMPLES, "int", False),
             ("BBB float ResNet-18", rmodel, fstate, PAR_FLOAT_SAMPLES,
-             "float", None)):
+             "float", False)):
         c = s // PAR_WORLD
+        every, own = ((PosteriorDraw(st, s), PosteriorDraw(st, c)) if bbb
+                      else (None, None))
         g = torch.Generator(device=dev).manual_seed(seed + 154)
         label = f"share {what} {c} of S={s}"
         with torch.no_grad():
             out[f"{label}, all S drawn"] = cuda_ms(
                 lambda: local_outputs(m, st, xt, slice(0, c), s, mode=mode,
-                                      plan=p, generator=g), iters=3,
+                                      draw=every, generator=g), iters=3,
                 warmup=1)
             out[f"{label}, own drawn"] = cuda_ms(
-                lambda: mc_predict(m, st, xt, samples=c, mode=mode, plan=p,
-                                   generator=g), iters=3, warmup=1)
+                lambda: mc_predict(m, st, xt, samples=c, mode=mode,
+                                   draw=own, generator=g), iters=3, warmup=1)
     print(f"parallel, a rank's share of the seeded sharded evaluation "
           f"(world {PAR_WORLD}, B={BATCH}), ms, with all S samples' draws "
           f"as sharded, and with its own samples' only ({nvidia_smi()}): "
@@ -4744,7 +4744,7 @@ def _mnist_dir(root):
                             prefix="FashionMNIST")
 
 
-def phase_parallel(seed, state, model, plan, dev):
+def phase_parallel(seed, state, model, dev):
     """The port's mesh on the card. World PAR_WORLD (gloo over CUDA
     tensors with the ranks sharing the card; NCCL with one card a rank
     where there are enough), then one NCCL group of world 1: per rank the
@@ -4779,8 +4779,8 @@ def phase_parallel(seed, state, model, plan, dev):
     ms = {}
     with tempfile.TemporaryDirectory() as tmp:
         with torch.no_grad():
-            codes = draw_sampled_weights(
-                state, plan, SAMPLES, torch.Generator().manual_seed(seed))
+            codes = PosteriorDraw(state, SAMPLES)(
+                torch.Generator().manual_seed(seed))
             given_outs = mc_predict(model, state, xt, samples=SAMPLES,
                                     presampled=codes)
             given = aggregate(given_outs)
@@ -4795,8 +4795,7 @@ def phase_parallel(seed, state, model, plan, dev):
             metric_state).items()}
         ms["eval one process"] = 1e3 * float(np.mean(seconds[1:]))
         rcfg, rmodel, rstate, step_of = _resnet_job(seed, dev)
-        ms.update(_share_ms(model, state, plan, rmodel, rstate, xt, seed,
-                            dev))
+        ms.update(_share_ms(model, state, rmodel, rstate, xt, seed, dev))
         rxt = torch.as_tensor(rx, device=dev)
         ryt = torch.as_tensor(ry, device=dev)
         from qbn_tpu_torch.ops.stochastic import GeneratorNoise
@@ -4965,19 +4964,19 @@ def main(argv=None) -> int:
         plan = presample_plan(state)
         check(len(plan) == 21, f"{len(plan)} stochastic layers")
     with Phase("kernel"):
-        max_err = phase_kernel(state, plan, SAMPLES, args.seed, dev)
+        max_err = phase_kernel(state, SAMPLES, args.seed, dev)
     with Phase("int_conv"):
         conv_errs = phase_int_conv(BATCH, SAMPLES, args.seed, dev)
         torch.cuda.empty_cache()
     with Phase("main"):
         launches, conv_launches, by_design, residual = phase_main(
-            args.seed, state, model, plan, dev)
+            args.seed, state, model, dev)
         torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(model, state, args.seed, dev)
     with Phase("methods"):
         m_launches, m_ms, m_err, (m_models, m_mc, m_data) = phase_methods(
-            args.seed, state, plan, dev)
+            args.seed, state, dev)
         torch.cuda.empty_cache()
     with Phase("methods_profile"):
         phase_methods_profile(m_models, m_mc, m_data, args.seed, dev)
@@ -5010,15 +5009,15 @@ def main(argv=None) -> int:
     dispatch = None
     if args.dispatch:
         with Phase("dispatch"):
-            dispatch = phase_dispatch(args.seed, state, model, plan, dev)
+            dispatch = phase_dispatch(args.seed, state, model, dev)
     with Phase("grid"):
         grid_secs = phase_grid(dev)
     with Phase("parallel"):
-        p_counts, p_ms = phase_parallel(args.seed, state, model, plan, dev)
+        p_counts, p_ms = phase_parallel(args.seed, state, model, dev)
         torch.cuda.empty_cache()
     with Phase("times"):
         ms, plain_ms, bound_ms, bound_by = phase_times(
-            state, plan, SAMPLES, args.seed)
+            state, SAMPLES, args.seed)
         d_ms, d_plain, d_lib, d_bound, d_by = phase_dense_times(args.seed)
         head = phase_dense_times(args.seed, DENSE_SHAPES[2],
                                  seed_mode=False)

@@ -3,9 +3,9 @@ of converted models (mode 'int', the default) and of float models (mode
 'float'), for the four methods. INT:
 
 * Bayes-by-backprop: per batch ONE launch of the posterior-draw kernel
-  draws S int8 weight samples of every stochastic layer
-  (`draw_sampled_weights`), and ONE forward in the merged layout computes
-  every sample;
+  draws S int8 weight samples of every stochastic layer (`PosteriorDraw`,
+  the draw's one owner, packed once an `evaluate`), and ONE forward in
+  the merged layout computes every sample;
 * MC-Dropout: ONE forward of the deterministic weights, S masked samples
   of activations from the first dropout site on (qbn_tpu vmaps the
   forward over S keys; its convs then fold the samples into the batch,
@@ -42,14 +42,17 @@ Spans (profiling.span): each batch of `evaluate` is `mc.batch`, with
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import itertools
+import operator
 import time
 import zlib
 from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from qbn_tpu_torch.convert import to_device
 from qbn_tpu_torch.data import datasets as D
@@ -57,11 +60,14 @@ from qbn_tpu_torch.data.distortions import (
     DISTORTIONS, LEVELS, apply_spec, gather_spec)
 from qbn_tpu_torch.evaluation.ensemble import member, members
 from qbn_tpu_torch.models.architectures import ResNet
-from qbn_tpu_torch.ops.sample_weights import QPARAM_KEYS, draw_layers, pack_layers
+from qbn_tpu_torch.ops.sample_weights import (
+    QPARAM_KEYS, draw_int8, draw_layers, pack_layers, unpack)
 from qbn_tpu_torch.ops.stochastic import BernoulliMasks, GeneratorNoise
 from qbn_tpu_torch.profiling import span
 from qbn_tpu_torch.training import metrics as M
 from qbn_tpu_torch.utils import full_float32, resolve_device
+
+_PACKED = ("w", "std", "qtab", "meta", "tile_layer")
 
 
 def presample_plan(state):
@@ -87,45 +93,66 @@ def presample_plan(state):
     return plan or None
 
 
-def plan_layers(state, plan):
-    """The draw's inputs of each plan entry, in plan order:
-    [(w_codes, std_codes, qparams, w_lo, w_hi)]."""
-    layers = []
-    for (path, w_lo, w_hi) in plan:
-        node = state["qconst"]
-        for k in path:
-            node = node[k]
-        layers.append((node["w_codes"], node["std_codes"],
-                       {k: node[k] for k in QPARAM_KEYS}, w_lo, w_hi))
-    return layers
+class PosteriorDraw(nn.Module):
+    """S int8 posterior samples of every stochastic quantised block of
+    `state`, packed once: the plan, the pack's tensors as buffers (w, std,
+    qtab, meta, tile_layer) and its layout (shapes, dst, samples, total,
+    tiles), which `draw_layers` and `unpack` read off the module as off a
+    LayerPack. Build it on the device the state is on."""
 
+    def __init__(self, state, samples: int):
+        super().__init__()
+        self.plan = presample_plan(state)
+        if self.plan is None:
+            raise ValueError("the state has no stochastic quantised blocks")
+        pack = pack_layers(self.inputs(state), samples)
+        for f in _PACKED:
+            self.register_buffer(f, getattr(pack, f))
+        self.shapes, self.dst, self.samples = pack.shapes, pack.dst, samples
+        self.total, self.tiles, self.frozen = pack.total, pack.tiles, False
 
-def draw_sampled_weights(state, plan, samples: int,
-                         generator: Optional[torch.Generator] = None,
-                         noise: Optional[Sequence[torch.Tensor]] = None,
-                         key: Optional[torch.Tensor] = None):
-    """Bulk posterior draw following a presample_plan, in one kernel
-    launch on the card. Returns the 'sampled' tree: a 'w' leaf of shape
-    (S, *w_codes.shape) int8 beside each block's 'q' entry.
+    def inputs(self, state):
+        """The draw's inputs of each plan entry, in plan order, read from
+        `state`: [(w_codes, std_codes, qparams, w_lo, w_hi)]."""
+        out = []
+        for path, w_lo, w_hi in self.plan:
+            node = functools.reduce(operator.getitem, path, state["qconst"])
+            out.append((node["w_codes"], node["std_codes"],
+                        {k: node[k] for k in QPARAM_KEYS}, w_lo, w_hi))
+        return out
 
-    key: the draw's (seed, offset), an int64 tensor of 2 (else drawn
-    from `generator`); noise (testing): one (S, *w_codes.shape) float32
-    tensor per plan entry."""
-    codes = draw_layers(pack_layers(plan_layers(state, plan), samples),
-                        generator, noise, key)
-    return sampled_tree(plan, codes)
+    def tree(self, codes):
+        """The 'sampled' collection of codes in plan order: each entry's
+        codes as a 'w' leaf under the block's path (its 'q' key dropped)."""
+        out = {}
+        for (path, _lo, _hi), c in zip(self.plan, codes):
+            cursor = out
+            for k in path[:-1]:
+                cursor = cursor.setdefault(k, {})
+            cursor["w"] = c
+        return out
 
+    def forward(self, generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                key: Optional[torch.Tensor] = None):
+        """The 'sampled' tree: a 'w' leaf of shape (S, *w_codes.shape)
+        int8 beside each block's 'q' entry, drawn from the seed and offset
+        `key` (an int64 tensor of 2), else from `generator`; noise
+        (testing): one (S, *w_codes.shape) float32 tensor per plan entry.
+        Frozen, the bank, whatever the source."""
+        if self.frozen:
+            return self.tree(unpack(self, self.bank))
+        return self.tree(draw_layers(self, generator, noise, key))
 
-def sampled_tree(plan, codes):
-    """The 'sampled' collection: each plan entry's codes as a 'w' leaf
-    under the block's path (its 'q' key dropped)."""
-    out = {}
-    for (path, _lo, _hi), c in zip(plan, codes):
-        cursor = out
-        for k in path[:-1]:
-            cursor = cursor.setdefault(k, {})
-        cursor["w"] = c
-    return out
+    def freeze(self, key: torch.Tensor):
+        """Draw once from `key` and hold the flat codes as the buffer
+        `bank` in place of the pack: every later call returns them."""
+        bank = draw_int8(*(getattr(self, f) for f in _PACKED),
+                         key.to(self.w.device), None, self.total)
+        for f in _PACKED:
+            delattr(self, f)
+        self.register_buffer("bank", bank)
+        self.frozen = True
 
 
 def _forward(model, x, variables, masks=None, up_to=None):
@@ -142,7 +169,7 @@ def _each(out, fn):
     return tuple(map(fn, out)) if isinstance(out, tuple) else fn(out)
 
 
-def mc_predict(model, state, x, *, samples: int, plan=None,
+def mc_predict(model, state, x, *, samples: int, draw=None,
                generator: Optional[torch.Generator] = None,
                presampled=None, up_to: Optional[str] = None,
                ensemble: bool = False, masks=None, mode: str = "int",
@@ -153,8 +180,8 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
 
     * ensemble: `state` stacked on a member axis of `samples` members;
     * Bayes-by-backprop (a stochastic model): weights drawn here from
-      `generator` following `plan` (or given as `presampled`), one
-      merged-layout forward;
+      `generator` by `draw` (a PosteriorDraw of `samples` samples; built
+      here if None), or given as `presampled`; one merged-layout forward;
     * MC-Dropout (a model with dropout sites): one forward, its masks from
       `masks` (a mask source, ops/stochastic.py) or drawn from
       `generator`;
@@ -184,8 +211,7 @@ def mc_predict(model, state, x, *, samples: int, plan=None,
     if model.stochastic:
         if presampled is None:
             with span("mc.draw"):
-                presampled = draw_sampled_weights(
-                    state, plan or presample_plan(state), samples,
+                presampled = (draw or PosteriorDraw(state, samples))(
                     generator)
         with span("mc.forward"):
             out = _forward(model, x, {**state, "sampled": presampled},
@@ -285,8 +311,8 @@ def evaluate(model, state, batches: Iterable, samples: int,
             return sharded_mc_predict(model, state, x, mesh, **kw)
     state = to_device(state, device)
     method, regression = model.method, model.task == "regression"
-    plan = (presample_plan(state) if method == "bbb" and mode == "int"
-            else None)
+    draw = (PosteriorDraw(state, samples)
+            if method == "bbb" and mode == "int" else None)
     masks = (BernoulliMasks(generator, samples if mode == "int" else 1)
              if method == "mcdropout" else None)
     metric_state = (M.reg_metrics_init(device=device) if regression
@@ -304,7 +330,7 @@ def evaluate(model, state, batches: Iterable, samples: int,
                     y = torch.as_tensor(y, device=device,
                                         dtype=torch.float32 if regression
                                         else torch.int64)
-                outs = predict(model, state, x, samples=samples, plan=plan,
+                outs = predict(model, state, x, samples=samples, draw=draw,
                                generator=generator, masks=masks,
                                ensemble=method == "sgld", mode=mode)
                 with span("mc.aggregate"):

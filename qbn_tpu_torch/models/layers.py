@@ -247,7 +247,7 @@ def _sampled(variables):
     if sampled is None:
         raise NotImplementedError(
             "a Bayes-by-backprop block in int mode takes its drawn weights "
-            "('sampled', evaluation.mc.draw_sampled_weights); qbn_tpu's "
+            "('sampled', evaluation.mc.PosteriorDraw); qbn_tpu's "
             "draw inside the forward is not ported")
     return sampled["w"]
 

@@ -355,7 +355,8 @@ def _lib():
     return fn
 
 
-def _unpack(pack: LayerPack, flat: torch.Tensor) -> List[torch.Tensor]:
+def unpack(pack: LayerPack, flat: torch.Tensor) -> List[torch.Tensor]:
+    """The (S, *shape_l) views of each layer of a pack's flat output."""
     s = pack.samples
     return [flat[d:d + s * math.prod(sh)].view((s,) + sh)
             for d, sh in zip(pack.dst, pack.shapes)]
@@ -449,6 +450,7 @@ def draw_layers(pack: LayerPack, generator: Optional[torch.Generator] = None,
                 key: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """S int8 samples of every layer of `pack`: a list of (S, *shape_l)
     tensors, in layer order, from ONE call of the `draw_int8` operator.
+    pack: a LayerPack or a module with its fields (evaluation.mc's owner).
 
     noise (testing): one (S, *shape_l) float32 tensor per layer; otherwise
     the seeded inverse-CDF normals, their seed and offset the int64 pair
@@ -473,7 +475,7 @@ def draw_layers(pack: LayerPack, generator: Optional[torch.Generator] = None,
         key = key_from_generator(generator)
     flat = draw_int8(pack.w, pack.std, pack.qtab, pack.meta, pack.tile_layer,
                      key, noise_buf, pack.total)
-    return _unpack(pack, flat)
+    return unpack(pack, flat)
 
 
 def sample_weights_int8(w_codes, std_codes, qparams, samples: int,

@@ -58,8 +58,7 @@ import torch
 from qbn_tpu_torch.config import Config
 from qbn_tpu_torch.evaluation.ensemble import member
 from qbn_tpu_torch.evaluation.mc import (
-    _each, _forward, _stack, aggregate, draw_sampled_weights, mc_predict,
-    presample_plan)
+    PosteriorDraw, _each, _forward, _stack, aggregate, mc_predict)
 from qbn_tpu_torch.ops.stochastic import (
     BernoulliMasks, DrawLog, GeneratorNoise, RowMasks, RowNoise,
     SampleMasks)
@@ -144,15 +143,16 @@ def _float_share(model, state, x, share: slice, samples: int, mode: str,
 
 
 def local_outputs(model, state, x, share: slice, samples: int, *,
-                  mode: str = "int", plan=None,
+                  mode: str = "int", draw=None,
                   generator: Optional[torch.Generator] = None,
                   presampled=None, masks=None, noise=None,
                   ensemble: bool = False):
     """mc_predict's outputs for samples `share` of an S-sample evaluation
     of a stochastic model or an ensemble (sample axis in front), with the
     one-process draws of those samples: one rank's part of the
-    sample-sharded evaluation. presampled: all S samples' codes (BBB
-    INT); masks: a source of all S samples' masks (INT) or one sample's
+    sample-sharded evaluation. draw: the PosteriorDraw of all S samples
+    (BBB INT; built here if None); presampled: all S samples' codes;
+    masks: a source of all S samples' masks (INT) or one sample's
     (float); noise (float): a source of the one-process draws."""
     c = share.stop - share.start
     if mode in ("float", "qat"):
@@ -165,8 +165,7 @@ def local_outputs(model, state, x, share: slice, samples: int, *,
                        for m in range(share.start, share.stop)])
     if model.stochastic:
         if presampled is None:
-            presampled = draw_sampled_weights(
-                state, plan or presample_plan(state), samples, generator)
+            presampled = (draw or PosteriorDraw(state, samples))(generator)
         return mc_predict(model, state, x, samples=c,
                           presampled=tree_map(lambda w: w[share],
                                               presampled))
@@ -176,7 +175,7 @@ def local_outputs(model, state, x, share: slice, samples: int, *,
 
 
 def sharded_mc_predict(model, state, x, mesh: Mesh, *, samples: int,
-                       mode: str = "int", plan=None,
+                       mode: str = "int", draw=None,
                        generator: Optional[torch.Generator] = None,
                        presampled=None, masks=None, noise=None,
                        ensemble: bool = False):
@@ -191,7 +190,7 @@ def sharded_mc_predict(model, state, x, mesh: Mesh, *, samples: int,
         return mc_predict(model, state, x, samples=samples, mode=mode,
                           generator=generator)
     own = local_outputs(model, state, x, sample_share(mesh, samples),
-                        samples, mode=mode, plan=plan, generator=generator,
+                        samples, mode=mode, draw=draw, generator=generator,
                         presampled=presampled, masks=masks, noise=noise,
                         ensemble=ensemble)
     group = mesh.group(mesh.axis_names[-1])
@@ -199,14 +198,14 @@ def sharded_mc_predict(model, state, x, mesh: Mesh, *, samples: int,
 
 
 def make_sharded_mc_eval(model, mode: str, mesh: Mesh,
-                         samples: int, ensemble: bool = False, plan=None):
+                         samples: int, ensemble: bool = False, draw=None):
     """MC evaluation of one batch with the sample axis sharded over the
     mesh: step(state, metric_state, x, y, generator=None, **given) ->
     (metric_state, aggregated output), the same on every rank; `given`:
     presampled, masks or noise, as sharded_mc_predict takes them."""
     def step(state, metric_state, x, y, generator=None, **given):
         outs = sharded_mc_predict(model, state, x, mesh, samples=samples,
-                                  mode=mode, plan=plan, generator=generator,
+                                  mode=mode, draw=draw, generator=generator,
                                   ensemble=ensemble, **given)
         agg = aggregate(outs, model.task)
         if model.task == "classification":

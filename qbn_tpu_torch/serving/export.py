@@ -8,10 +8,10 @@ regression, (mean, total_var) (`evaluation.mc.aggregate`). Every random
 source it reaches draws from a key tensor made from `seed` (the posterior
 draw's (seed, 0), the dropout masks' (seed, 1), float BBB's noise's
 (seed, 2)), so that an exported program's draws follow its `seed` input;
-no torch.Generator enters the graph. The state is held as the module's
-buffers, the draw's pack is built once here, and every host read of the
-forward (the plan, the pack's layout) happens at build time, so that
-`torch.export` traces the forward as it stands.
+no torch.Generator enters the graph. The state is the module's buffers,
+the posterior draw (`evaluation.mc.PosteriorDraw`, packed once) its
+submodule, and every host read of the forward (the plan, the pack's
+layout) happens at build time, so that `torch.export` traces it as it is.
 
 `export_predictor` exports the module (`torch.export.export`, then
 `torch.export.save`): the weights and, with `freeze_draws`, the drawn
@@ -34,7 +34,6 @@ Artifact layout (a directory):
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 from dataclasses import dataclass
@@ -45,13 +44,11 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from qbn_tpu_torch.config import Config
-from qbn_tpu_torch.evaluation.mc import (
-    aggregate, mc_predict, plan_layers, presample_plan, sampled_tree)
-from qbn_tpu_torch.ops.sample_weights import (
-    _unpack, draw_int8, draw_layers, pack_layers)
+from qbn_tpu_torch.evaluation.mc import PosteriorDraw, aggregate, mc_predict
 from qbn_tpu_torch.ops.stochastic import SeedMasks, SeedNoise
 from qbn_tpu_torch.profiling import paused, span
 from qbn_tpu_torch.training.checkpoint import model_size_mb
+from qbn_tpu_torch.training.optim import tree_map
 from qbn_tpu_torch.utils import full_float32
 
 _BLOB = "predictor.pt2"
@@ -59,7 +56,6 @@ _MANIFEST = "manifest.json"
 
 # the offset of each random source's key (seed, offset)
 DRAW_STREAM, MASK_STREAM, NOISE_STREAM = 0, 1, 2
-_PACK_FIELDS = ("w", "std", "qtab", "meta", "tile_layer")
 
 
 def seed_key(seed, stream: int) -> torch.Tensor:
@@ -67,12 +63,6 @@ def seed_key(seed, stream: int) -> torch.Tensor:
     on the seed's device (seed an int or a 0-d tensor)."""
     seed = torch.as_tensor(seed, dtype=torch.int64).reshape(())
     return torch.stack([seed, torch.full_like(seed, stream)])
-
-
-def _slice(tree, lo: int, hi: int):
-    if isinstance(tree, dict):
-        return {k: _slice(v, lo, hi) for k, v in tree.items()}
-    return tree[lo:hi]
 
 
 def _cat_samples(parts):
@@ -95,41 +85,28 @@ class Predictor(nn.Module):
         if mode not in ("float", "qat", "int"):
             raise ValueError(f"unknown mode '{mode}'")
         n = cfg.samples if samples is None else samples
-        plan = (presample_plan(state)
+        draw = (PosteriorDraw(state, n)
                 if mode == "int" and not ensemble and model.stochastic
                 else None)
         # qbn_tpu's checks: the port always runs a stochastic INT model
-        # through the plan (one draw launch, the merged layout), so
-        # use_plan only gates chunk and freeze_draws as it does there
-        planned = use_plan and plan is not None
+        # through the draw (one launch, the merged layout), so use_plan
+        # only gates chunk and freeze_draws as it does there
+        planned = use_plan and draw is not None
         if chunk is not None and planned and n % chunk:
             raise ValueError(f"chunk {chunk} must divide samples {n}")
         if freeze_draws is not None and not planned:
             raise ValueError("freeze_draws requires use_plan + INT mode "
                              "on a model with stochastic quantised layers")
         self.model, self.task, self.mode = model, cfg.task, mode
-        self.samples, self.ensemble, self.plan = n, ensemble, plan
+        self.samples, self.ensemble, self.draw = n, ensemble, draw
         self.chunk = chunk if planned and chunk is not None and chunk < n \
             else None
         leaves, self._spec = pytree.tree_flatten(state)
         self._n_leaves = len(leaves)
         for i, leaf in enumerate(leaves):
             self.register_buffer(f"state_{i}", leaf.detach())
-        self._pack = None
-        self.frozen = freeze_draws is not None
-        if plan is not None:
-            pack = pack_layers(plan_layers(state, plan), n)
-            if self.frozen:
-                with torch.no_grad():
-                    key = seed_key(freeze_draws, DRAW_STREAM).to(pack.w.device)
-                    self.register_buffer("bank", draw_int8(
-                        pack.w, pack.std, pack.qtab, pack.meta,
-                        pack.tile_layer, key, None, pack.total))
-            else:
-                for f in _PACK_FIELDS:
-                    self.register_buffer(f"pack_{f}", getattr(pack, f))
-            self._pack = dataclasses.replace(
-                pack, **{f: None for f in _PACK_FIELDS})
+        if freeze_draws is not None:
+            draw.freeze(seed_key(freeze_draws, DRAW_STREAM))
 
     def state(self):
         return pytree.tree_unflatten(
@@ -140,7 +117,7 @@ class Predictor(nn.Module):
         state = self.state()
         n = self.samples
         with full_float32():
-            if self.plan is None:
+            if self.draw is None:
                 outs = mc_predict(
                     self.model, state, x, samples=n, mode=self.mode,
                     ensemble=self.ensemble,
@@ -148,18 +125,13 @@ class Predictor(nn.Module):
                                     n if self.mode == "int" else 1),
                     noise=SeedNoise(seed_key(seed, NOISE_STREAM)))
                 return aggregate(outs, self.task)
-            if self.frozen:
-                codes = _unpack(self._pack, self.bank)
-            else:
-                pack = dataclasses.replace(self._pack, **{
-                    f: getattr(self, f"pack_{f}") for f in _PACK_FIELDS})
-                codes = draw_layers(pack, key=seed_key(seed, DRAW_STREAM))
-            sampled = sampled_tree(self.plan, codes)
+            sampled = (self.draw() if self.draw.frozen
+                       else self.draw(key=seed_key(seed, DRAW_STREAM)))
             k = self.chunk or n
-            parts = [mc_predict(
-                self.model, state, x, samples=k, mode="int", plan=self.plan,
-                presampled=_slice(sampled, c, c + k))
-                for c in range(0, n, k)]
+            parts = [mc_predict(self.model, state, x, samples=k, mode="int",
+                                presampled=tree_map(lambda w: w[c:c + k],
+                                                    sampled))
+                     for c in range(0, n, k)]
             return aggregate(_cat_samples(parts), self.task)
 
 

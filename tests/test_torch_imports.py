@@ -64,6 +64,48 @@ def test_new_sources_scanned():
         assert rel in names, rel
 
 
+DRAW_OWNERS = {ROOT / "qbn_tpu_torch" / "evaluation" / "mc.py",
+               ROOT / "qbn_tpu_torch" / "ops" / "sample_weights.py"}
+PACKAGE = [p for p in SOURCES if p.parent != ROOT and p not in DRAW_OWNERS]
+PACKING = {"pack_layers", "draw_layers", "_unpack", "LayerPack"}
+
+
+@pytest.mark.parametrize("path", PACKAGE,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_one_owner_packs_the_draw(path):
+    """The INT posterior draw is packed and unpacked in one place: outside
+    the owner (evaluation/mc.py PosteriorDraw) and the kernel's
+    module, no source names the pack's functions, by import or by
+    attribute, or imports the kernel module's `unpack`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    used |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    imported = {a.name for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom)
+                and (n.module or "").endswith("sample_weights")
+                for a in n.names}
+    bad = (used & PACKING) | (imported & (PACKING | {"unpack"}))
+    assert not bad, f"{path} names {sorted(bad)}"
+
+
+def test_the_draw_has_one_owner():
+    """The draw's old second and third owners are gone: no per-call pack
+    in evaluation/mc.py, no hand-named pack buffers in serving, and no
+    evaluation entry takes a plan (they take a PosteriorDraw)."""
+    from qbn_tpu_torch.evaluation import mc
+    from qbn_tpu_torch.ops import sample_weights
+    from qbn_tpu_torch.parallel import sharded
+    from qbn_tpu_torch.serving import export
+    for module, name in ((mc, "draw_sampled_weights"), (mc, "plan_layers"),
+                         (mc, "sampled_tree"), (export, "_PACK_FIELDS"),
+                         (sample_weights, "_unpack")):
+        assert not hasattr(module, name), name
+    for fn in (mc.mc_predict, sharded.local_outputs,
+               sharded.sharded_mc_predict, sharded.make_sharded_mc_eval):
+        params = inspect.signature(fn).parameters
+        assert "plan" not in params and params["draw"].default is None
+
+
 LOWER = [p for p in SOURCES if p.parent.name in (
     "ops", "models", "quant", "training")]
 

@@ -295,9 +295,8 @@ def _given(model, state, case, x, samples, seed):
     from a recording forward."""
     rng = np.random.default_rng(seed)
     if case == "bbb":
-        return [rng.standard_normal((samples, *w.shape)).astype(np.float32)
-                for w, *_rest in mc.plan_layers(state,
-                                                mc.presample_plan(state))]
+        return [rng.standard_normal((samples, *shape)).astype(np.float32)
+                for shape in mc.PosteriorDraw(state, samples).shapes]
     log = DrawLog(samples if case == "mcdropout" else 1)
     mode = "int" if case == "mcdropout" else "float"
     mc.mc_predict(model, state, x, samples=log.samples, mode=mode,
@@ -340,8 +339,7 @@ def mc_eval(mesh, case, samples, x, y, given_seed=None):
             for name, m in (("given_single", None), ("given_sharded", mesh)):
                 kw = {}
                 if case == "bbb":
-                    kw["presampled"] = mc.draw_sampled_weights(
-                        state, mc.presample_plan(state), samples,
+                    kw["presampled"] = mc.PosteriorDraw(state, samples)(
                         noise=[torch.from_numpy(a) for a in given])
                 elif case == "mcdropout":
                     kw["masks"] = QueueMasks(given)

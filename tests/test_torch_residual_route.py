@@ -28,8 +28,7 @@ from torch.utils._pytree import tree_map
 
 from qbn_tpu_torch.config import QuantConfig
 from qbn_tpu_torch.evaluation import ensemble as TE
-from qbn_tpu_torch.evaluation.mc import (
-    draw_sampled_weights, mc_predict, plan_layers, presample_plan)
+from qbn_tpu_torch.evaluation.mc import PosteriorDraw, mc_predict
 from qbn_tpu_torch.models import layers as TL
 from qbn_tpu_torch.models.architectures import CUTS, BasicBlock, ResNet
 from qbn_tpu_torch.models.factory import load_trained
@@ -100,11 +99,10 @@ def _same(a, b):
 @pytest.fixture(scope="module")
 def flagship():
     _cfg, model, state = load_trained(EXP, device="cpu")
-    plan = presample_plan(state)
+    draw = PosteriorDraw(state, S)
     g = torch.Generator().manual_seed(3)
-    noise = [torch.randn((S,) + tuple(w.shape), generator=g)
-             for (w, *_r) in plan_layers(state, plan)]
-    sampled = draw_sampled_weights(state, plan, S, noise=noise)
+    noise = [torch.randn((S,) + shape, generator=g) for shape in draw.shapes]
+    sampled = draw(noise=noise)
     x = torch.from_numpy(np.random.default_rng(4).uniform(
         0.0, 1.0, (B, 32, 32, 3)).astype(np.float32))
     return model, state, sampled, x

@@ -28,10 +28,13 @@ from qbn_tpu.training import metrics as JM
 from qbn_tpu.training.checkpoint import checkpoint_path
 from qbn_tpu.utils import split_rngs
 
+from qbn_tpu_torch.evaluation import mc as TMC
 from qbn_tpu_torch.evaluation.mc import (
-    draw_sampled_weights, evaluate, mc_predict, presample_plan)
+    PosteriorDraw, aggregate, evaluate, mc_predict, presample_plan)
 from qbn_tpu_torch.models.architectures import CUTS
 from qbn_tpu_torch.models.factory import load_trained
+from qbn_tpu_torch.ops.sample_weights import (
+    QPARAM_KEYS, draw_layers, key_from_generator, pack_layers)
 from qbn_tpu_torch.training import metrics as TM
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -80,7 +83,7 @@ def flagship():
         cursor["w"] = codes.reshape((S,) + shape)
         noise[tuple(path)] = torch.from_numpy(eps.reshape((S,) + shape))
     noise = [noise[p] for p, _lo, _hi in plan]
-    sampled = draw_sampled_weights(state, plan, S, noise=noise)
+    sampled = PosteriorDraw(state, S)(noise=noise)
     return dict(jmodel=jmodel, jvars=jvars, jsampled=jsampled, model=model,
                 state=state, sampled=sampled, x=x, y=y, noise=noise,
                 cfg=cfg, jcfg=jcfg)
@@ -160,3 +163,60 @@ def test_evaluate_entry_point_on_cpu(flagship):
         np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, atol=1e-5)
     assert float(state["count"]) == 2 * B
     assert float(state["ece_count"].sum()) == 2 * B
+
+
+def _three_batches(f):
+    rng = np.random.default_rng(12)
+    return [(rng.uniform(0.0, 1.0, f["x"].shape).astype(np.float32), f["y"])
+            for _ in range(3)]
+
+
+def test_evaluate_packs_the_draw_once(flagship, monkeypatch):
+    """`evaluate` packs the state's 21 stochastic layers once a call (its
+    PosteriorDraw), not once a batch."""
+    calls = []
+
+    def counted(layers, samples):
+        calls.append(len(layers))
+        return pack_layers(layers, samples)
+    monkeypatch.setattr(TMC, "pack_layers", counted)
+    f = flagship
+    _ms, probs, _sec = evaluate(f["model"], f["state"], _three_batches(f),
+                                samples=S, generator=torch.Generator()
+                                .manual_seed(5), device="cpu")
+    assert len(probs) == 3 and calls == [21]
+
+
+def test_evaluate_draws_as_a_pack_per_batch(flagship):
+    """Packed once, `evaluate` draws bitwise what a pack built anew each
+    batch draws, each batch's key taken from the generator at the same
+    point: the same outputs and the generator's same final state."""
+    f = flagship
+    g = torch.Generator().manual_seed(5)
+    g_ref = torch.Generator().manual_seed(5)
+    ms, probs, _sec = evaluate(f["model"], f["state"], _three_batches(f),
+                               samples=S, generator=g, device="cpu")
+    state = f["state"]
+    layers = []
+    for path, lo, hi in presample_plan(state):
+        node = state["qconst"]
+        for k in path:
+            node = node[k]
+        layers.append((node["w_codes"], node["std_codes"],
+                       {k: node[k] for k in QPARAM_KEYS}, lo, hi))
+    with torch.no_grad():
+        for (x, _y), got in zip(_three_batches(f), probs):
+            codes = draw_layers(pack_layers(layers, S),
+                                key=key_from_generator(g_ref))
+            sampled = {}
+            for (path, _lo, _hi), c in zip(presample_plan(state), codes):
+                cursor = sampled
+                for k in path[:-1]:
+                    cursor = cursor.setdefault(k, {})
+                cursor["w"] = c
+            want = aggregate(mc_predict(f["model"], state,
+                                        torch.from_numpy(x), samples=S,
+                                        presampled=sampled))
+            assert torch.equal(got, want)
+    assert torch.equal(g.get_state(), g_ref.get_state())
+    assert float(ms["count"]) == 3 * B

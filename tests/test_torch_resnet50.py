@@ -38,7 +38,7 @@ from torch.utils._pytree import tree_map
 from qbn_tpu_torch.config import Config, QuantConfig
 from qbn_tpu_torch.data import datasets as D
 from qbn_tpu_torch.evaluation.mc import (
-    draw_sampled_weights, mc_predict, presample_plan)
+    PosteriorDraw, mc_predict, presample_plan)
 from qbn_tpu_torch.models import factory
 from qbn_tpu_torch.models import layers as TL
 from qbn_tpu_torch.models.architectures import (
@@ -97,8 +97,7 @@ def bbb(name):
                                  update_stats=True, noise=GeneratorNoise(g),
                                  masks=BernoulliMasks(g, 1))
     state = convert_model(model, v, x)
-    sampled = draw_sampled_weights(state, presample_plan(state), S,
-                                   torch.Generator().manual_seed(9))
+    sampled = PosteriorDraw(state, S)(torch.Generator().manual_seed(9))
     return _arch(widths), model, state, x, sampled
 
 

@@ -40,7 +40,7 @@ from qbn_tpu_torch.config import Config, QuantConfig
 from qbn_tpu_torch.convert import from_jax_state, to_numpy_state
 from qbn_tpu_torch.evaluation import ensemble as TE
 from qbn_tpu_torch.evaluation.mc import (
-    aggregate, draw_sampled_weights, mc_predict, presample_plan)
+    PosteriorDraw, aggregate, mc_predict)
 from qbn_tpu_torch.models.architectures import CUTS, BasicBlock, ResNet
 from qbn_tpu_torch.models.factory import build_model, load_trained
 from qbn_tpu_torch.ops.stochastic import SeedMasks
@@ -187,12 +187,11 @@ def test_freeze_draws_fixed_sample_bank(tmp_path, lenet):
     mc_predict's on the same eagerly drawn codes, independent of the seed
     (all randomness was in the weights), and round-trip bitwise."""
     cfg, model, state, x = lenet[:4]
-    plan = presample_plan(state)
-    frozen = draw_sampled_weights(state, plan, 4,
-                                  key=seed_key(3, DRAW_STREAM))
+    draw = PosteriorDraw(state, 4)
+    frozen = draw(key=seed_key(3, DRAW_STREAM))
     with torch.no_grad():
         expected = aggregate(mc_predict(model, state, x, samples=4,
-                                        plan=plan, presampled=frozen))
+                                        draw=draw, presampled=frozen))
         fn = make_predictor(model, state, cfg, mode="int", use_plan=True,
                             freeze_draws=3)
         got_a, got_b = fn(x, torch.tensor(11)), fn(x, torch.tensor(99))
@@ -204,6 +203,29 @@ def test_freeze_draws_fixed_sample_bank(tmp_path, lenet):
     loaded = load_predictor(str(tmp_path))
     assert loaded.manifest["freeze_draws"] == 3
     _same(loaded.call(x, 11), expected)
+
+
+def test_frozen_draw_is_its_draw_under_the_key(lenet):
+    """A frozen PosteriorDraw's bank is bitwise its draw under the same
+    key, whatever a later call passes; it then holds the bank alone, and
+    so does a frozen predictor, where a seeded one holds the pack."""
+    cfg, model, state = lenet[:3]
+    draw = PosteriorDraw(state, 4)
+    drawn = draw(key=seed_key(3, DRAW_STREAM))
+    draw.freeze(seed_key(3, DRAW_STREAM))
+    for got in (draw(), draw(key=seed_key(4, DRAW_STREAM))):
+        assert got.keys() == drawn.keys()
+        for a, b in zip(jax.tree.leaves(to_numpy_state(got)),
+                        jax.tree.leaves(to_numpy_state(drawn))):
+            np.testing.assert_array_equal(a, b)
+    assert [n for n, _b in draw.named_buffers()] == ["bank"]
+    for freeze, want in ((3, {"draw.bank"}),
+                         (None, {"draw.w", "draw.std", "draw.qtab",
+                                 "draw.meta", "draw.tile_layer"})):
+        fn = make_predictor(model, state, cfg, mode="int", use_plan=True,
+                            freeze_draws=freeze)
+        assert {n for n, _b in fn.named_buffers()
+                if n.startswith("draw.")} == want
 
 
 @pytest.mark.parametrize("freeze", [5, None])
@@ -224,13 +246,12 @@ def test_seeded_predictor_is_the_live_path(lenet):
     predictor is mc_predict + aggregate on that draw, and seeds differ."""
     cfg, model, state, x = lenet[:4]
     fn = make_predictor(model, state, cfg, mode="int")
-    plan = presample_plan(state)
+    draw = PosteriorDraw(state, 4)
     with torch.no_grad():
         for seed in (0, 12):
-            drawn = draw_sampled_weights(state, plan, 4,
-                                         key=seed_key(seed, DRAW_STREAM))
+            drawn = draw(key=seed_key(seed, DRAW_STREAM))
             _same(fn(x, torch.tensor(seed)), aggregate(mc_predict(
-                model, state, x, samples=4, plan=plan, presampled=drawn)))
+                model, state, x, samples=4, draw=draw, presampled=drawn)))
         assert not torch.equal(fn(x, torch.tensor(0)),
                                fn(x, torch.tensor(12)))
 
@@ -296,8 +317,8 @@ def test_frozen_bank_against_qbn_tpu_lenet(lenet):
     cfg, model, state, x, jm, jst = lenet
     fn = make_predictor(model, state, cfg, mode="int", use_plan=True,
                         freeze_draws=7)
-    bank = to_numpy_state(draw_sampled_weights(
-        state, presample_plan(state), 4, key=seed_key(7, DRAW_STREAM)))
+    bank = to_numpy_state(PosteriorDraw(state, 4)(
+        key=seed_key(7, DRAW_STREAM)))
     jouts = JMC.mc_predict(jm, jst, jnp.asarray(x.numpy()),
                            jax.random.PRNGKey(1), samples=4, mode="int",
                            presampled=jax.tree.map(jnp.asarray, bank),
@@ -318,8 +339,8 @@ def resnet_bank(resnet):
     cfg, model, state, x, jm, jst = resnet
     fn = make_predictor(model, state, cfg, mode="int", use_plan=True,
                         freeze_draws=7)
-    bank = to_numpy_state(draw_sampled_weights(
-        state, presample_plan(state), 4, key=seed_key(7, DRAW_STREAM)))
+    bank = to_numpy_state(PosteriorDraw(state, 4)(
+        key=seed_key(7, DRAW_STREAM)))
     with torch.no_grad():
         got = fn(x, torch.tensor(0))
     return bank, got
