@@ -25,9 +25,9 @@ data-parallel ResNet-18 step, and a runner flow over 2 ranks.
 Phases, in order, each printing its seconds:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name
-  2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu and
-              csrc/int_conv.cu, one process each, started together, with
-              their register/spill reports
+  2. build    nvcc of csrc/sample_weights.cu, csrc/bbb_dense.cu,
+              csrc/int_conv.cu and csrc/dropout_site.cu, one process
+              each, started together, with their register/spill reports
   3. kernel   the posterior-draw kernel against its plain PyTorch version,
               bitwise, at all 21 flagship layers (S=100) and on a pack
               holding a layer over 1024 rows of 512: with explicit noise,
@@ -71,7 +71,11 @@ Phases, in order, each printing its seconds:
               example-samples/s; each distinct conv shape of a full-size
               forward against its plain version on the recorded inputs;
               one forward per method at B=8, kernel path against plain
-              path and card against CPU, at every cut
+              path and card against CPU, at every cut; the dropout site
+              kernel's launches (20 a MC-Dropout forward, none on the
+              other paths), and the kernel against its plain version,
+              bitwise, at the 20 site shapes (B=256, S=20), timed
+              against it in turns beside its bound
   8. methods_profile one MC-Dropout batch under torch.profiler
   9. bbb_dense the local-reparametrisation dense kernel (3xTF32) against
               its plain version and the float32 dot-product bound of a
@@ -281,6 +285,7 @@ from qbn_tpu_torch.models.architectures import CUTS, BasicBlock
 from qbn_tpu_torch.models.factory import build_model, load_trained
 from qbn_tpu_torch.ops import _build
 from qbn_tpu_torch.ops import bbb_dense as bd
+from qbn_tpu_torch.ops import dropout_site as ds
 from qbn_tpu_torch.ops import int_conv as ic
 from qbn_tpu_torch.ops import sample_weights as sw
 from qbn_tpu_torch.ops.stochastic import (
@@ -307,6 +312,8 @@ CONV_SOURCE = "qbn_tpu_torch/csrc/int_conv.cu"
 # K3; the same kernel carries K4's contract (qbn_tpu/ops/pallas/bconv.py:225)
 CONV_REPLACES = "qbn_tpu/ops/pallas/conv_gemm.py:123"
 RESIDUAL_REPLACES = "qbn_tpu/ops/pallas/bconv.py:225"
+# no pallas_call: qbn_tpu runs the site's INT branch in XLA fusions
+SITE_SOURCE = "qbn_tpu_torch/csrc/dropout_site.cu"
 # the training path: the mnist BBB preset at its batch, 2 epochs x 10 steps
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 256, 2, 10
 # (B, K, N) of LeNet's fc_0 and fc_1 at that batch, of the ResNet-18's
@@ -589,6 +596,12 @@ CONV_SHAPES = [
     ("stage3 3x3", 192, 192, 3, 1, 4, False, 3),
 ]
 CONVS_PER_BATCH = sum(c[-1] for c in CONV_SHAPES)          # 20
+# the MC-Dropout ResNet-18's sites, one after each conv: (name, output
+# size, channels, shared x, per batch); the stem's site takes codes with
+# no sample axis
+SITE_SHAPES = [(name, (hw + 2 * (k // 2) - k) // stride + 1, cout, shared, n)
+               for name, _cin, cout, k, stride, hw, shared, n in CONV_SHAPES]
+SITES_PER_BATCH = sum(c[-1] for c in SITE_SHAPES)          # 20
 # the block 3x3 convs, which take the kernel's halo body
 HALO_PER_BATCH = sum(c[-1] for c in CONV_SHAPES
                      if c[3] == 3 and not c[6])                 # 16
@@ -1146,9 +1159,10 @@ def phase_methods(seed, state, dev):
         per_batch = CONVS_PER_BATCH * (MEMBERS if method == "sgld" else 1)
         gen = torch.Generator(device=dev).manual_seed(seed + 64)
         _reset_counts()
+        sites = ds.launches
         metric_state, probs, seconds = evaluate(models[method], st, data,
                                                 samples, gen, dev)
-        n, draws = ic.launches, sw.launches
+        n, draws, sites = ic.launches, sw.launches, ds.launches - sites
         by, shared = dict(ic.launches_by_design), dict(ic.launches_shared_w)
         want = {k: v * per_batch // CONVS_PER_BATCH * BATCHES
                 for k, v in SHARED_BY_DESIGN.items()}
@@ -1159,6 +1173,9 @@ def phase_methods(seed, state, dev):
               "batches")
         check(by == shared == want, f"{label}: conv launches by design "
               f"{by}, with shared weights {shared}, expected {want}")
+        want_sites = SITES_PER_BATCH * BATCHES if method == "mcdropout" else 0
+        check(sites == want_sites, f"{label}: {sites} dropout site "
+              f"launches in {BATCHES} batches, expected {want_sites}")
         for p in probs:
             check(p.shape == (BATCH, 10) and bool(torch.isfinite(p).all()),
                   f"{label}: probabilities {tuple(p.shape)}")
@@ -1172,7 +1189,8 @@ def phase_methods(seed, state, dev):
         print(f"{label}: B={BATCH} x {samples} samples, steady {ms:.1f} "
               f"ms/batch ({', '.join(f'{1e3 * t:.1f}' for t in seconds)}), "
               f"{es:.0f} example-samples/s; conv launches {n} ({by}), all "
-              f"with shared weights; metrics {json.dumps(metrics)}",
+              f"with shared weights; dropout site launches {sites}; "
+              f"metrics {json.dumps(metrics)}",
               flush=True)
         launches[label], steady_ms[label] = n, ms
 
@@ -1261,6 +1279,65 @@ def phase_methods_profile(models, mc, data, seed, dev):
         _state, _probs, secs = evaluate(models["mcdropout"], mc, data[:1],
                                         SAMPLES, gen, dev)
     report_profile(prof, 1e6 * secs[0], "profiled MC-Dropout batch")
+
+
+def phase_dropout_sites(seed, dev, samples=MC_CAMPAIGN_SAMPLES):
+    """The dropout site kernel at each of the MC-Dropout ResNet-18's 20
+    site shapes at B=256 and `samples` samples (the stem's input shared),
+    on random codes and seeded masks at an A7 grid: bitwise against its
+    plain version, and timed against it in turns (plain, kernel, kernel,
+    plain); its bound, the bytes of the codes read (the shared input
+    once), the mask read and the codes written at 3.35 TB/s. Leaves the
+    launch count as it found it. Returns the per-batch (ms, plain_ms,
+    bound_ms) of the 20 sites and the largest code difference."""
+    launches_before = ds.launches
+    g = torch.Generator(device=dev).manual_seed(seed + 67)
+    q = (_f32(0.0794982761, dev), _f32(0.0757, dev), _i32(19, dev), 0, 127,
+         1.0 / (1.0 - MC_P))
+    tot = dict(ms=0.0, plain=0.0, bytes=0)
+    err = 0
+    for name, hw, c, shared, n in SITE_SHAPES:
+        lead = (BATCH,) if shared else (samples, BATCH)
+        x = torch.randint(-128, 128, lead + (hw, hw, c), generator=g,
+                          device=dev, dtype=torch.int8)
+        mask = (torch.rand((samples, BATCH, 1, 1, c), generator=g,
+                           device=dev) < 1.0 - MC_P).to(torch.float32)
+        got, scale = ds.dropout_site(x, mask, *q)
+        want, want_scale = ds.dropout_site_plain(x, mask, *q)
+        err = max(err, _codes_err(got, want, f"dropout site {name}"))
+        check(torch.equal(scale, want_scale), f"dropout site {name}: scale "
+              f"{float(scale)} against {float(want_scale)}")
+        del got, want
+
+        def kernel():
+            ds.dropout_site(x, mask, *q)
+
+        def plain():
+            ds.dropout_site_plain(x, mask, *q)
+
+        t = [cuda_ms(plain, iters=3, warmup=1), cuda_ms(kernel),
+             cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        nbytes = x.numel() + 4 * mask.numel() + samples * BATCH * hw * hw * c
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"dropout site {name} x{n}/batch, S={samples}"
+              f"{', shared input' if shared else ''}: codes == plain "
+              f"(vectors of {ds.site_plan(x.shape, mask.shape).vec}); kernel "
+              f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.3f}/{t[3]:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({nbytes} bytes), kernel at "
+              f"{bound_ms / ms:.1%} of its bound", flush=True)
+        for key, v in (("ms", ms), ("plain", plain_ms), ("bytes", nbytes)):
+            tot[key] += n * v
+        del x, mask
+        torch.cuda.empty_cache()
+    bound_ms = 1e3 * tot["bytes"] / HBM_BYTES_PER_S
+    print(f"dropout sites per MC-Dropout batch ({SITES_PER_BATCH} sites, "
+          f"B={BATCH}, S={samples}): kernel {tot['ms']:.3f} ms, plain "
+          f"{tot['plain']:.1f} ms, bound {bound_ms:.4f} ms by bytes "
+          f"({tot['bytes']} bytes), kernel at {bound_ms / tot['ms']:.1%} of "
+          f"its bound; {nvidia_smi()}", flush=True)
+    ds.launches = launches_before
+    return (tot["ms"], tot["plain"], bound_ms), err
 
 
 def phase_shared_conv_times(seed, dev=torch.device("cuda")):
@@ -4952,8 +5029,8 @@ def main(argv=None) -> int:
               f"count {torch.cuda.device_count()}")
     with Phase("build"):
         t0 = time.perf_counter()
-        libs = _build.build_all(["sample_weights", "bbb_dense", "int_conv"],
-                                force=True)
+        libs = _build.build_all(["sample_weights", "bbb_dense", "int_conv",
+                                 "dropout_site"], force=True)
         for name, lib in libs.items():
             print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
                   f"{os.path.relpath(lib, ROOT)}")
@@ -4978,6 +5055,7 @@ def main(argv=None) -> int:
         m_launches, m_ms, m_err, (m_models, m_mc, m_data) = phase_methods(
             args.seed, state, dev)
         torch.cuda.empty_cache()
+        site_times, site_err = phase_dropout_sites(args.seed, dev)
     with Phase("methods_profile"):
         phase_methods_profile(m_models, m_mc, m_data, args.seed, dev)
         del m_models, m_mc, m_data
@@ -5078,7 +5156,8 @@ def main(argv=None) -> int:
           f"with the residual epilogue {residual} (main) + "
           f"{r50_counts['conv_residual']} (ResNet-50), shared weights "
           f"{sum(m_launches.values())} (methods) + {q_counts['conv_shared']}"
-          f" (INT after QAT) + {s_counts['conv_shared']} (SGHMC ensemble)")
+          f" (INT after QAT) + {s_counts['conv_shared']} (SGHMC ensemble); "
+          f"dropout site {ds.launches} (every MC-Dropout INT path)")
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
@@ -5174,7 +5253,15 @@ def main(argv=None) -> int:
             ("", CONV_REPLACES, "conv", "all"),
             ("_residual", RESIDUAL_REPLACES, "conv_residual",
              "residual"),
-            ("_wide", CONV_REPLACES, "wide", "wide"))]}))
+            ("_wide", CONV_REPLACES, "wide", "wide"))]
+        + [{
+        # the dropout site kernel on every MC-Dropout INT path (20 sites a
+        # ResNet-18 forward); its time per B=256, S=20 batch of 20 sites
+        "name": "dropout_site", "route": "cuda", "source": SITE_SOURCE,
+        "replaces": None, "launches": ds.launches,
+        "max_abs_err": site_err, "ms": site_times[0],
+        "plain_ms": site_times[1], "bound_ms": site_times[2],
+        "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

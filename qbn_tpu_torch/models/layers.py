@@ -55,6 +55,7 @@ from qbn_tpu_torch.quant.fake_quant import fake_quantize, quantize
 from qbn_tpu_torch.quant.observer import (
     calculate_qparams, obs_init, obs_update)
 from qbn_tpu_torch.ops.collectives import data_group, global_moments
+from qbn_tpu_torch.ops.dropout_site import dropout_site
 from qbn_tpu_torch.ops.integer import (
     int_conv, int_conv_merged, int_dense, int_dense_merged)
 from qbn_tpu_torch.ops.stochastic import (
@@ -612,7 +613,9 @@ class BernoulliDropout(nn.Module):
     or more (which 4-bit activations reach) the kept mask 1.0 rounds to
     the zero point and every activation goes to zero, as in qbn_tpu and
     the reference. A shared input (QTensor) leaves as S samples
-    (SampleQTensor)."""
+    (SampleQTensor). The site is one call of ops/dropout_site.py's
+    operator: on the card one launch of its kernel, on the CPU its plain
+    version."""
 
     def __init__(self, p: float = 0.0, quant: QuantConfig = QuantConfig()):
         super().__init__()
@@ -652,14 +655,12 @@ class BernoulliDropout(nn.Module):
         if per_sample and mask.shape[0] != x.codes.shape[0]:
             raise ValueError(f"{mask.shape[0]} masks for "
                              f"{x.codes.shape[0]} samples")
-        mz_f = mz.to(torch.float32)
-        mask_q = torch.clamp(torch.round(mask / ms) + mz_f, 0, 255)
-        mask_deq = (mask_q.to(torch.int32).to(torch.float32) - mz_f) * ms
-        prod = dequantize_codes(x.codes, x.scale) * mask_deq
-        codes = quantize_codes(prod, ms, mz, a_lo, a_hi)
-        multiplier = torch.tensor(1.0 / (1.0 - self.p), dtype=torch.float32,
-                                  device=ms.device)
-        return SampleQTensor(codes, ms * multiplier, mz)
+        # the kernel takes contiguous tensors; any producer's layout is
+        # accepted here (a no-op for the conv kernel's outputs)
+        codes, scale = dropout_site(x.codes.contiguous(), mask.contiguous(),
+                                    x.scale, ms, mz, a_lo, a_hi,
+                                    1.0 / (1.0 - self.p))
+        return SampleQTensor(codes, scale, mz)
 
 
 class ResidualAdd(nn.Module):

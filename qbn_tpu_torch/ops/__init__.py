@@ -3,4 +3,4 @@ operators (`torch.ops.qbn_tpu_torch.*`, ops/library.py), which is all that
 loading an exported predictor needs of the port."""
 
 from qbn_tpu_torch.ops import (  # noqa: F401
-    int_conv, sample_weights, stochastic)
+    dropout_site, int_conv, sample_weights, stochastic)

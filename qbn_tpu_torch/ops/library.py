@@ -11,9 +11,9 @@ program holds a call of the operator where the kernel runs, and loading
 it needs only these registrations (importing `qbn_tpu_torch.ops`), not
 the model code.
 
-The entries in `ops/sample_weights.py` and `ops/int_conv.py` define their
-operators here at import time; nothing is built until a CUDA
-implementation first runs.
+The entries in `ops/sample_weights.py`, `ops/int_conv.py` and
+`ops/dropout_site.py` define their operators here at import time; nothing
+is built until a CUDA implementation first runs.
 """
 
 from __future__ import annotations

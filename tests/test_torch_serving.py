@@ -392,7 +392,8 @@ def test_mc_dropout_masks_follow_the_seed(tmp_path):
                      input_shape=LENET, path=str(tmp_path))
     loaded = load_predictor(str(tmp_path))
     _same(loaded.call(x, 5), live)
-    assert _kernel_ops(loaded) == ["qbn_tpu_torch.int_conv.default",
+    assert _kernel_ops(loaded) == ["qbn_tpu_torch.dropout_site.default",
+                                   "qbn_tpu_torch.int_conv.default",
                                    "qbn_tpu_torch.seeded_draw.default"]
 
 
